@@ -1,6 +1,6 @@
-"""BayesNF-TPU: a TPU-native Bayesian Neural Field framework.
+"""bayesnf_tpu: a JAX/XLA Bayesian Neural Field framework.
 
-A from-scratch, TPU-first reimplementation of the capabilities of
+A from-scratch reimplementation of the capabilities of
 google/bayesnf (Bayesian Neural Fields for spatiotemporal prediction,
 Nature Communications 15:7942, 2024). The public estimator surface mirrors
 the reference API (`/root/reference/src/bayesnf/__init__.py:19-23`):
@@ -13,8 +13,9 @@ the reference API (`/root/reference/src/bayesnf/__init__.py:19-23`):
 Unlike the reference (pure Python + TFP + pmap(vmap)), this framework is
 built on a functional parameter-struct model, an explicit
 ``jax.sharding.Mesh`` with GSPMD-partitioned ensemble/data axes, a
-self-contained probability kernel library (no TFP dependency), and Pallas
-TPU kernels for the fused hot paths.
+and a self-contained probability library (no TFP dependency). The hot
+paths are plain JAX compiled by XLA (on an NVIDIA H100, cuBLAS matmuls and
+XLA fusions).
 """
 
 __version__ = '0.1.0'

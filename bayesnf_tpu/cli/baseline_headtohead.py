@@ -5,7 +5,7 @@ The framework exists to beat the paper's competitor methods
 quantile regression, trend-surface OLS/RIDGE/LASSO on BayesNF's own
 features), and the drivers have long been in `cli/evaluate_baseline.py`
 — this runner actually EXECUTES them alongside BayesNF-TPU and commits
-the comparison (VERDICT r4 item 1). Three legs:
+the comparison. Three legs:
 
 - ``synthetic``: the ground-truth suite generator (`cli/synthetic.py` —
   the same field the correctness suite gates on), several seeds, NORMAL
@@ -43,10 +43,10 @@ true mean on the synthetic leg). CRPS estimators per method:
 
 Usage (writes the committed artifact):
 
-    python -m bayesnf_tpu.cli.baseline_headtohead --json-out BASELINES_r05.json
+    python -m bayesnf_tpu.cli.baseline_headtohead --json-out baselines.json
 
-~12 minutes on a v5e chip (both synthetic legs × 3 seeds + the
-published chickenpox config). `--quick` shrinks budgets for smoke runs;
+Runs both synthetic legs × 3 seeds + the published chickenpox config.
+`--quick` shrinks budgets for smoke runs;
 `--legs` selects legs.
 
 The CI gates live in `tests/test_baseline_headtohead.py`: on the NORMAL

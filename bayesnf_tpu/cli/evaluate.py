@@ -83,9 +83,7 @@ def run_experiment(
       batch_size=inference_config.get('batch_size'),
       ensemble_size=inference_config['num_particles'],
   )
-  for key in (
-      'backend', 'precision', 'stream_chunk_steps', 'stream_member_remix'
-  ):
+  for key in ('precision', 'stream_chunk_steps', 'stream_member_remix'):
     if key in inference_config:
       fit_kwargs[key] = inference_config[key]
   if inference_config.get('data_devices'):
@@ -241,13 +239,8 @@ def main(argv=None):
       help='Override the ensemble size.',
   )
   parser.add_argument(
-      '--backend', default=None, choices=['auto', 'xla', 'pallas'],
-      help='Trainer backend (all objectives): pallas = fused TPU kernels; '
-      'auto (the fit default) = pallas on TPU, xla elsewhere.',
-  )
-  parser.add_argument(
       '--precision', default=None, choices=['f32', 'bf16', 'highest'],
-      help='Matmul precision (all objectives, both backends).',
+      help='Matmul precision (all objectives).',
   )
   parser.add_argument(
       '--data_devices', type=int, default=None,
@@ -267,7 +260,8 @@ def main(argv=None):
       '--stream_chunk_steps', type=int, default=None,
       help='Host-streaming training: keep the dataset in host RAM and '
       'stream batches in slices of this many SGD steps (requires the '
-      "config's batch_size < rows) — for datasets larger than HBM.",
+      "config's batch_size < rows) — for datasets larger than device "
+      'memory.',
   )
   parser.add_argument(
       '--stream_chunk_rows', type=int, default=None,
@@ -298,8 +292,6 @@ def main(argv=None):
     # registry's full budget.
     if args.num_particles is not None:
       inference['num_particles'] = args.num_particles
-    if args.backend is not None:
-      inference['backend'] = args.backend
     if args.precision is not None:
       inference['precision'] = args.precision
     if args.data_devices is not None:

@@ -13,9 +13,9 @@ train-region extract of the reference repo's
 moment-matched Normal from the golden's mean and 95% interval), and
 writes a machine-readable artifact for the repo history:
 
-    python -m bayesnf_tpu.cli.parity_run --json-out PARITY_r03.json
+    python -m bayesnf_tpu.cli.parity_run --json-out parity.json
 
-~2-3 minutes on a TPU v5e chip. The caveats of this comparison
+The caveats of this comparison
 (protocol-matched, not data-matched — the golden was fit on the complete
 dataset) are documented in PARITY.md §3 and carried into the artifact.
 """

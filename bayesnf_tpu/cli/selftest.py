@@ -1,26 +1,26 @@
-"""Hardware self-test: Pallas/XLA backend agreement on the attached device.
+"""Hardware self-test: default-precision vs exact-f32 agreement on a device.
 
-Qualification tool for a new chip, topology, or toolchain bump: runs the
+Qualification tool for a new card, topology, or toolchain bump: runs the
 REAL production paths (`inference.map.fit_map`, `inference.vi.fit_vi`,
-`inference.predict.predict_bnf`) twice — fused-Pallas backend vs the
-portable XLA backend — on a small synthetic spatiotemporal workload and
-asserts the two executables agree within kernel tolerances for every
-observation model. The reference has no equivalent (it ships exactly one
-code path); here two independently-written backends make divergence the
-key hardware/compiler risk, and this catches it in seconds on-device.
+`inference.predict.predict_bnf`) twice — at JAX's default matmul precision
+(on an H100, f32 dots may run as TF32) and under
+`jax.default_matmul_precision('highest')` (exact f32) — on a small
+synthetic spatiotemporal workload, and asserts the two agree within
+tolerance for every observation model. Losses are compared at the first
+epoch, where both runs evaluate identical initial parameters; predictions
+at identical fitted parameters.
 
 Usage:
 
-    python -m bayesnf_tpu.cli.selftest            # current JAX backend
+    python -m bayesnf_tpu.cli.selftest            # current JAX device
     python -m bayesnf_tpu.cli.selftest --epochs 50 --rows 1024
 
 Prints one line per check and a final JSON summary; exit code is non-zero
-on any disagreement. On CPU the Pallas kernels run in interpreter mode
-(slow — keep --rows/--epochs small); on TPU the compiled kernels are
-exercised, which is the intended use.
+on any disagreement.
 """
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -65,12 +65,20 @@ def _workload(rows, width, seed=0):
   return config, aug, jnp.asarray(y_normal), jnp.asarray(y_counts)
 
 
+PRECISIONS = ('default', 'highest')
+
+
+def _at(precision):
+  """Context for one leg: JAX's default matmul precision, or exact f32."""
+  if precision == 'default':
+    return contextlib.nullcontext()
+  return jax.default_matmul_precision(precision)
+
+
 def _loss_agreement(name, losses_a, losses_b, rtol, checks):
   a = np.asarray(losses_a, dtype=np.float64)
   b = np.asarray(losses_b, dtype=np.float64)
-  # Per-member final losses: the kernel-vs-XLA tolerance contract
-  # (tests/test_inference.py uses the same comparison at CI shapes).
-  # Pure relative error is well-conditioned here: losses are O(1e2) and
+  # Per-member losses. Pure relative error is well-conditioned here: losses are O(1e2) and
   # bounded away from zero. Predictions are NOT (they cross zero) — those
   # go through `_pred_agreement` instead.
   rel = np.max(np.abs(a - b) / (np.abs(b) + 1e-6))
@@ -87,10 +95,9 @@ def _pred_agreement(name, pred_a, pred_b, rtol, data_scale, checks):
   zero (a 5e-4 absolute difference near b=0 reads as 'rel=0.2'). Contract:
   |a - b| <= atol + rtol * max(|a|, |b|) elementwise, with atol tied to the
   scale of the *data* (rtol * std(y)) rather than of the predictions — a
-  barely-trained model predicts near zero, and the f32 kernel-vs-XLA
-  forward-pass floor (~1e-4 absolute at these magnitudes) is hardware
-  agreement, not divergence, whenever it is tiny against the observable
-  signal.
+  barely-trained model predicts near zero, and a reduced-precision
+  forward-pass floor is agreement, not divergence, whenever it is tiny
+  against the observable signal.
   """
   a = np.asarray(pred_a, dtype=np.float64)
   b = np.asarray(pred_b, dtype=np.float64)
@@ -106,7 +113,7 @@ def _pred_agreement(name, pred_a, pred_b, rtol, data_scale, checks):
 
 def _count_quantile_agreement(name, q_a, q_b, checks):
   """Integer quantiles sit on a discretization cliff: the root-find's ceil
-  flips a whole count when the two backends' CDFs differ in the last few
+  flips a whole count when the two programs' CDFs differ in the last few
   ulps at an integer boundary. Agreement contract: every row within one
   count, and at most max(1, 1% of rows) rows differ at all (the floor of
   one keeps the bound meaningful at small --rows, where a single flip
@@ -133,234 +140,193 @@ def main(argv=None):
   parser.add_argument('--epochs', type=int, default=30)
   parser.add_argument('--ensemble', type=int, default=4)
   parser.add_argument('--rtol', type=float, default=5e-3,
-                      help='relative tolerance on final per-member losses')
+                      help='relative tolerance on first-epoch per-member '
+                           'losses and on predictions')
   parser.add_argument('--json-out', type=str, default=None,
                       help='also write the full JSON summary (per-check '
                            'detail, device, args) to this path')
   args = parser.parse_args(argv)
 
-  backend = jax.default_backend()
-  print(f'device backend: {backend} ({jax.devices()[0].device_kind})')
+  platform = jax.default_backend()
+  print(f'device: {platform} ({jax.devices()[0].device_kind})')
   config, aug, y_normal, y_counts = _workload(args.rows, args.width)
 
-  checks = []
-  t0 = time.perf_counter()
-  for distribution in ('NORMAL', 'NB', 'ZINB'):
-    y = y_normal if distribution == 'NORMAL' else y_counts
-    results = {}
-    for train_backend in ('xla', 'pallas'):
-      params, losses = map_lib.fit_map(
-          aug, y,
+  def fit_map(precision, y, distribution, **kw):
+    with _at(precision):
+      return map_lib.fit_map(
+          aug if 'stream_chunk_steps' not in kw else np.asarray(aug), y,
           seed=jax.random.PRNGKey(7),
           observation_model=distribution,
           config=config,
           num_particles=args.ensemble,
           learning_rate=0.005,
           num_epochs=args.epochs,
-          backend=train_backend,
+          **kw,
       )
-      results[train_backend] = (params, losses[:, -1])
+
+  def fit_vi(precision, **kw):
+    with _at(precision):
+      return vi_lib.fit_vi(
+          aug if 'stream_chunk_steps' not in kw else np.asarray(aug),
+          y_normal,
+          seed=jax.random.PRNGKey(7),
+          observation_model='NORMAL',
+          config=config,
+          ensemble_size=args.ensemble,
+          learning_rate=0.01,
+          num_epochs=args.epochs,
+          sample_size_divergence=3,
+          kl_weight=0.1,
+          **kw,
+      )
+
+  def predict(precision, features, distribution, params, **kw):
+    with _at(precision):
+      return predict_lib.predict_bnf(
+          features, distribution, params, config, **kw
+      )
+
+  x = aug[:, : config.num_inputs]
+  checks = []
+  t0 = time.perf_counter()
+  for distribution in ('NORMAL', 'NB', 'ZINB'):
+    y = y_normal if distribution == 'NORMAL' else y_counts
+    results = {pr: fit_map(pr, y, distribution) for pr in PRECISIONS}
     _loss_agreement(
-        f'map/{distribution} final losses',
-        results['pallas'][1], results['xla'][1], args.rtol, checks,
+        f'map/{distribution} first-epoch losses',
+        results['default'][1][:, 0], results['highest'][1][:, 0],
+        args.rtol, checks,
     )
 
-    # Predict agreement on the params the XLA fit produced (shared input
-    # to both predict programs; count models exercise the root-finder).
-    p = tuple(x[jnp.newaxis] for x in results['xla'][0])  # (1, E, ...)
+    # Predict agreement on the params the exact fit produced (shared
+    # input to both programs; count models exercise the root-finder).
+    p = tuple(v[jnp.newaxis] for v in results['highest'][0])  # (1, E, ...)
     if distribution == 'NORMAL':
-      normal_params = results['xla'][0]  # for the streamed-predict leg
+      normal_params = results['highest'][0]  # for the streamed-predict leg
     preds = {}
-    for predict_backend in ('xla', 'pallas'):
-      means, (q50, q975) = predict_lib.predict_bnf(
-          aug[:, : config.num_inputs],
-          distribution,
-          p,
-          config,
-          quantiles=(0.5, 0.975),
-          ensemble_dims=2,
-          backend=predict_backend,
+    for pr in PRECISIONS:
+      means, (q50, q975) = predict(
+          pr, x, distribution, p, quantiles=(0.5, 0.975), ensemble_dims=2
       )
-      preds[predict_backend] = (means, q50, q975)
+      preds[pr] = (means, q50, q975)
     count_model = distribution != 'NORMAL'
     for i, part in enumerate(('means', 'q50', 'q975')):
       name = f'predict/{distribution} {part}'
       if count_model and part != 'means':
         _count_quantile_agreement(
-            name, preds['pallas'][i], preds['xla'][i], checks)
+            name, preds['default'][i], preds['highest'][i], checks)
       else:
         _pred_agreement(
-            name, preds['pallas'][i], preds['xla'][i], args.rtol,
+            name, preds['default'][i], preds['highest'][i], args.rtol,
             np.std(np.asarray(y)), checks)
 
-  # VI: ELBO trajectory agreement (NORMAL is the representative cell; the
-  # per-distribution kernel bodies are already covered by the MAP loop).
-  vi_losses = {}
-  vi_draws = {}
-  for train_backend in ('xla', 'pallas'):
-    _, losses, draws = vi_lib.fit_vi(
-        aug, y_normal,
-        seed=jax.random.PRNGKey(7),
-        observation_model='NORMAL',
-        config=config,
-        ensemble_size=args.ensemble,
-        learning_rate=0.01,
-        num_epochs=args.epochs,
-        sample_size_divergence=3,
-        sample_size_posterior=4,
-        kl_weight=0.1,
-        backend=train_backend,
-    )
-    vi_losses[train_backend] = np.asarray(losses)[:, -1]
-    vi_draws[train_backend] = draws
+  # VI: first-step ELBO agreement (NORMAL is the representative cell; the
+  # per-distribution likelihoods are already covered by the MAP loop).
+  vi = {pr: fit_vi(pr, sample_size_posterior=4) for pr in PRECISIONS}
   _loss_agreement(
-      'vi/NORMAL final losses',
-      vi_losses['pallas'], vi_losses['xla'], args.rtol, checks,
+      'vi/NORMAL first-step losses',
+      np.asarray(vi['default'][1])[:, 0], np.asarray(vi['highest'][1])[:, 0],
+      args.rtol, checks,
   )
 
   # VI predict: the ensemble_dims=3 path (groups x samples x members) —
   # means + an exact mixture quantile over the posterior-draw ensemble,
-  # backend agreement on the XLA fit's draws.
-  vi_p = tuple(d[jnp.newaxis] for d in vi_draws['xla'])  # (1, E, S, ...)
+  # on the exact fit's draws.
+  vi_p = tuple(d[jnp.newaxis] for d in vi['highest'][2])  # (1, E, S, ...)
   vi_preds = {}
-  for predict_backend in ('xla', 'pallas'):
-    means, (q50,) = predict_lib.predict_bnf(
-        aug[:, : config.num_inputs], 'NORMAL', vi_p, config,
-        quantiles=(0.5,), ensemble_dims=3, backend=predict_backend,
+  for pr in PRECISIONS:
+    means, (q50,) = predict(
+        pr, x, 'NORMAL', vi_p, quantiles=(0.5,), ensemble_dims=3
     )
-    vi_preds[predict_backend] = (means, q50)
+    vi_preds[pr] = (means, q50)
   for i, part in enumerate(('means', 'q50')):
     _pred_agreement(
         f'vi-predict/NORMAL {part}',
-        vi_preds['pallas'][i], vi_preds['xla'][i], args.rtol,
+        vi_preds['default'][i], vi_preds['highest'][i], args.rtol,
         np.std(np.asarray(y_normal)), checks)
 
   # likelihood_model's engine: raw forecast distribution parameters
-  # (loc/scale, total_count/logits/pi) must agree across backends — this
-  # is the path `estimator.likelihood_model` serves distributions from.
-  p_zinb = tuple(x[jnp.newaxis] for x in results['xla'][0])  # last MAP fit
-  fp_by_backend = {}
-  for predict_backend in ('xla', 'pallas'):
-    fp_by_backend[predict_backend] = predict_lib.forecast_params_bnf(
-        aug[:, : config.num_inputs], 'ZINB', p_zinb, config,
-        ensemble_dims=2, backend=predict_backend,
-    )
+  # (total_count/logits/pi) — the path `estimator.likelihood_model` serves
+  # distributions from.
+  p_zinb = tuple(v[jnp.newaxis] for v in results['highest'][0])  # ZINB fit
+  fp = {}
+  for pr in PRECISIONS:
+    with _at(pr):
+      fp[pr] = predict_lib.forecast_params_bnf(
+          x, 'ZINB', p_zinb, config, ensemble_dims=2
+      )
   for i, part in enumerate(('total_count', 'logits', 'pi')):
     _pred_agreement(
         f'likelihood-model/ZINB {part}',
-        fp_by_backend['pallas'][i], fp_by_backend['xla'][i], args.rtol,
-        float(np.std(np.asarray(fp_by_backend['xla'][i]))) or 1.0, checks)
+        fp['default'][i], fp['highest'][i], args.rtol,
+        float(np.std(np.asarray(fp['highest'][i]))) or 1.0, checks)
 
   # Streaming: host-resident dataset shipped to the device in step slices.
-  # Two on-device contracts: (a) backend agreement on a streamed minibatch
-  # fit; (b) slice-size bit-invariance — the slice size is pure transfer
-  # granularity and must not change the math (tests/test_streaming.py
-  # proves this on the CPU interpreter; this is the compiled-device leg).
-  aug_host = np.asarray(aug)
+  # Two on-device contracts: (a) precision agreement on a streamed
+  # minibatch fit; (b) slice-size bit-invariance — the slice size is pure
+  # transfer granularity and must not change the math.
   # Streaming requires a true minibatch (batch < rows); cap at rows // 2 so
   # small --rows invocations stay legal instead of crashing the self-test.
   stream_batch = max(1, min(max(32, args.rows // 4), args.rows // 2))
-  stream_losses = {}
-  for train_backend in ('xla', 'pallas'):
-    _, losses = map_lib.fit_map(
-        aug_host, y_normal,
-        seed=jax.random.PRNGKey(7),
-        observation_model='NORMAL',
-        config=config,
-        num_particles=args.ensemble,
-        learning_rate=0.005,
-        num_epochs=args.epochs,
-        batch_size=stream_batch,
-        backend=train_backend,
-        stream_chunk_steps=2,
-    )
-    stream_losses[train_backend] = losses
+  stream = {
+      pr: fit_map(
+          pr, y_normal, 'NORMAL', batch_size=stream_batch,
+          stream_chunk_steps=2,
+      )[1]
+      for pr in PRECISIONS
+  }
   _loss_agreement(
-      'stream/NORMAL final losses',
-      stream_losses['pallas'][:, -1], stream_losses['xla'][:, -1],
-      args.rtol, checks,
+      'stream/NORMAL first-epoch losses',
+      stream['default'][:, 0], stream['highest'][:, 0], args.rtol, checks,
   )
-  _, losses_s3 = map_lib.fit_map(
-      aug_host, y_normal,
-      seed=jax.random.PRNGKey(7),
-      observation_model='NORMAL',
-      config=config,
-      num_particles=args.ensemble,
-      learning_rate=0.005,
-      num_epochs=args.epochs,
-      batch_size=stream_batch,
-      backend='pallas',
+  _, losses_s3 = fit_map(
+      'default', y_normal, 'NORMAL', batch_size=stream_batch,
       stream_chunk_steps=3,
   )
-  bit_ok = bool(np.array_equal(stream_losses['pallas'], losses_s3))
+  bit_ok = bool(np.array_equal(stream['default'], losses_s3))
   checks.append({'check': 'stream/NORMAL slice bit-invariance',
                  'bitwise_equal': bit_ok, 'ok': bit_ok})
   print(f'{"PASS" if bit_ok else "FAIL"} stream/NORMAL slice '
         f'bit-invariance: chunk_steps 2 vs 3 '
         f'{"bitwise equal" if bit_ok else "DIFFER"}')
 
-  # Count-model streaming: the in-kernel Stirling gammaln path under the
-  # streamed slice program, backend agreement.
-  nb_stream_losses = {}
-  for train_backend in ('xla', 'pallas'):
-    _, losses = map_lib.fit_map(
-        aug_host, y_counts,
-        seed=jax.random.PRNGKey(7),
-        observation_model='NB',
-        config=config,
-        num_particles=args.ensemble,
-        learning_rate=0.005,
-        num_epochs=args.epochs,
-        batch_size=stream_batch,
-        backend=train_backend,
-        stream_chunk_steps=2,
-    )
-    nb_stream_losses[train_backend] = losses
+  # Count-model streaming under the streamed slice program.
+  nb_stream = {
+      pr: fit_map(
+          pr, y_counts, 'NB', batch_size=stream_batch, stream_chunk_steps=2,
+      )[1]
+      for pr in PRECISIONS
+  }
   _loss_agreement(
-      'stream/NB final losses',
-      nb_stream_losses['pallas'][:, -1], nb_stream_losses['xla'][:, -1],
-      args.rtol, checks,
+      'stream/NB first-epoch losses',
+      nb_stream['default'][:, 0], nb_stream['highest'][:, 0], args.rtol,
+      checks,
   )
 
-  # VI streaming: per-step host-resampled batches through the fused
-  # kernel; backend agreement on the final ELBO.
-  vi_stream_losses = {}
-  for train_backend in ('xla', 'pallas'):
-    _, losses, _ = vi_lib.fit_vi(
-        aug_host, y_normal,
-        seed=jax.random.PRNGKey(7),
-        observation_model='NORMAL',
-        config=config,
-        ensemble_size=args.ensemble,
-        learning_rate=0.01,
-        num_epochs=args.epochs,
-        sample_size_divergence=3,
-        sample_size_posterior=2,
-        kl_weight=0.1,
-        batch_size=stream_batch,
-        backend=train_backend,
-        stream_chunk_steps=2,
-    )
-    vi_stream_losses[train_backend] = np.asarray(losses)[:, -1]
+  # VI streaming: per-step host-resampled batches.
+  vi_stream = {
+      pr: np.asarray(
+          fit_vi(
+              pr, sample_size_posterior=2, batch_size=stream_batch,
+              stream_chunk_steps=2,
+          )[1]
+      )[:, 0]
+      for pr in PRECISIONS
+  }
   _loss_agreement(
-      'stream-vi/NORMAL final losses',
-      vi_stream_losses['pallas'], vi_stream_losses['xla'], args.rtol, checks,
+      'stream-vi/NORMAL first-step losses',
+      vi_stream['default'], vi_stream['highest'], args.rtol, checks,
   )
 
   # Out-of-core streamed predict: host-chunked rows with the global-
   # bracket two-pass scheme must reproduce the in-memory predict program
-  # on-device (same backend, meshless => bit-level expected; tolerance
-  # guards against cross-program fusion ulps on real hardware).
-  pred_backend = 'pallas' if backend == 'tpu' else 'xla'
-  p_norm = tuple(x[jnp.newaxis] for x in normal_params)
-  sp_kwargs = dict(
-      quantiles=(0.5, 0.975), ensemble_dims=2, backend=pred_backend,
-  )
-  mem = predict_lib.predict_bnf(
-      aug[:, : config.num_inputs], 'NORMAL', p_norm, config, **sp_kwargs
-  )
-  streamed = predict_lib.predict_bnf(
-      np.asarray(aug[:, : config.num_inputs]), 'NORMAL', p_norm, config,
+  # (same precision, meshless => bit-level expected; the tolerance guards
+  # against cross-program fusion ulps on real hardware).
+  p_norm = tuple(v[jnp.newaxis] for v in normal_params)
+  sp_kwargs = dict(quantiles=(0.5, 0.975), ensemble_dims=2)
+  mem = predict('default', x, 'NORMAL', p_norm, **sp_kwargs)
+  streamed = predict(
+      'default', np.asarray(x), 'NORMAL', p_norm,
       stream_chunk_rows=max(64, args.rows // 3), **sp_kwargs
   )
   _pred_agreement(
@@ -373,7 +339,7 @@ def main(argv=None):
 
   ok = all(c['ok'] for c in checks)
   summary = {
-      'backend': backend,
+      'platform': platform,
       'ok': ok,
       'num_checks': len(checks),
       'wall_s': round(time.perf_counter() - t0, 1),

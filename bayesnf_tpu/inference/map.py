@@ -13,7 +13,7 @@ Semantics parity with the reference trainer
 - `num_splits` sequential host loop over ensemble chunks (a memory seam and
   the natural checkpoint boundary), concatenated on the member axis.
 
-TPU-first redesign (not a translation):
+Redesign (not a translation):
 
 - One `jax.jit` over an explicit ('ens', 'data') mesh replaces
   `pmap(vmap(...))`: ensemble members are a leading GSPMD-sharded axis,
@@ -34,7 +34,6 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from bayesnf_tpu.inference import backends as backends_lib
 from bayesnf_tpu.models import field as field_lib
 from bayesnf_tpu.models import likelihoods
 from bayesnf_tpu.models import priors
@@ -58,17 +57,17 @@ def _make_train_fn(
 ):
   """Build the jitted ensemble training program for one static config.
 
-  `precision`: 'f32' (default; on TPU the MXU already computes f32 dots
-  with bf16 operands), 'bf16' (explicit bf16 MXU operands, f32
-  accumulation and parameters), or 'highest' (multi-pass true-f32 MXU
-  arithmetic).
+  `precision`: 'f32' (default: JAX's default matmul precision, which on
+  an H100 may run f32 dots as TF32 on the tensor cores), 'bf16' (explicit
+  bf16 operands, f32 accumulation and parameters), or 'highest' (exact
+  f32 dots).
 
   `grad_row_chunk`: rows per gradient-accumulation chunk. Each SGD step
   computes its gradient by scanning over row chunks and summing — exact
   (the loss is a sum over rows), but the live activation footprint is one
   (width, chunk) buffer instead of (width, batch), which keeps arbitrarily
   large batches (e.g. the sst config's 221k-row full batch x 64 members)
-  inside HBM.
+  inside device memory.
 
   `row_pad`: total padding rows the caller added (balanced layout — see
   `parallel/minibatch.py`) so the row count divides the mesh's data axis
@@ -199,13 +198,38 @@ def _make_train_fn(
   data_t = mesh_lib.data_sharding_t(mesh)  # rows are axis 1 of aug_t
   num_leaves = len(field_lib.param_specs(config))
   params_shard = (ens,) * num_leaves
-  opt_shard = backends_lib.adam_state_spec(config, learning_rate, ens)
+  opt_shard = adam_state_spec(config, learning_rate, ens)
   return jax.jit(
       train,
       in_shardings=(params_shard, opt_shard, ens, data_t, data),
       out_shardings=(params_shard, opt_shard, ens, ens),
       donate_argnums=(0, 1, 2),
   )
+
+
+def adam_state_spec(config, learning_rate: float, leaf, surrogate: bool = False):
+  """Sharding tree shaped like the trainers' batched Adam state.
+
+  Built with `jax.eval_shape` (trace-only), so learning the optimizer
+  state's pytree structure compiles nothing.
+
+  Args:
+    config: static model config (fixes the parameter leaves).
+    learning_rate: Adam learning rate (optax needs it to build the state).
+    leaf: the per-leaf spec to broadcast over the state tree — a
+      `PartitionSpec` (shard_map factories) or `NamedSharding` (GSPMD
+      in/out shardings).
+    surrogate: True for the VI trainers, whose parameter pytree is the
+      (locs, raw_scales) surrogate pair.
+  """
+  template = tuple(
+      jax.ShapeDtypeStruct((1,) + s.shape, jnp.float32)
+      for s in field_lib.param_specs(config)
+  )
+  if surrogate:
+    template = (template, template)
+  state = jax.eval_shape(optax.adam(learning_rate).init, template)
+  return jax.tree_util.tree_map(lambda _: leaf, state)
 
 
 def init_opt_state(config, learning_rate, params):
@@ -221,9 +245,8 @@ def _make_init_fn(
   member params, Adam state, and the per-member training keys.
 
   Cached at module scope: a jit wrapper created inside `ensemble_map`
-  would recompile on EVERY fit (each `jax.jit` object has its own cache),
-  which a bench rep measured as a ~2x throughput loss on the remote
-  service. `log_noise_init` is a traced argument so one executable serves
+  would recompile on EVERY fit (each `jax.jit` object has its own cache).
+  `log_noise_init` is a traced argument so one executable serves
   every dataset at a given (config, lr, member-count) — and the whole
   init is one program instead of ~60 primitive-sized eager compiles
   (docs/roadmap.md item 3). The key derivation is the reference scheme
@@ -262,7 +285,7 @@ def _make_init_fn(
   num_leaves = len(field_lib.param_specs(config))
   out_shardings = (
       (ens,) * num_leaves,
-      backends_lib.adam_state_spec(config, learning_rate, ens),
+      adam_state_spec(config, learning_rate, ens),
       ens,
       mesh_lib.replicated_sharding(mesh),
   )
@@ -275,9 +298,6 @@ def _make_losses_and_grads(
     lik_scale: float,
     prior_weight: float,
     precision: str,
-    kernel: str,
-    tile: int | None,
-    subtiles: int,
     data_shards: int,
 ):
   """Per-step ensemble (losses, grads) function shared by the shard_map
@@ -290,14 +310,11 @@ def _make_losses_and_grads(
   after the reduction.
   """
   d = config.num_inputs
-  num_w = config.depth + 1
   compute_dtype = {
       'f32': None, 'bf16': jnp.bfloat16, 'highest': 'highest'
   }[precision]
 
-  def xla_losses_and_grads(params_b, aug_b, y_b, n_valid=None):
-    """Autodiff twin of `fused_losses_and_grads` (same signature/shapes)."""
-
+  def losses_and_grads(params_b, aug_b, y_b, n_valid=None):
     def member_loss(params, aug_bt, y_m):
       pred = field_lib.apply_field_t(
           config, params, aug_bt[:d], aug_bt[d:], compute_dtype=compute_dtype
@@ -315,74 +332,6 @@ def _make_losses_and_grads(
     )(params_b, aug_b, y_b)
     grads = list(grads)
     if data_shards > 1:
-      losses = jax.lax.psum(losses, mesh_lib.DATA_AXIS)
-      grads = [jax.lax.psum(g, mesh_lib.DATA_AXIS) for g in grads]
-    if prior_weight != 0.0:
-      prior_losses, prior_grads = jax.vmap(
-          jax.value_and_grad(
-              lambda p: -prior_weight * priors.prior_log_prob(config, p)
-          )
-      )(params_b)
-      losses = losses + prior_losses
-      grads = [g + pg for g, pg in zip(grads, prior_grads)]
-    return losses, tuple(grads)
-
-  def fused_losses_and_grads(params_b, aug_b, y_b, n_valid=None):
-    """Losses and grads via the single-pass fused train kernel.
-
-    One Pallas program per step, any observation model: in-kernel encode
-    (octave Fourier via the double-angle recurrence, hand-derived backward)
-    + forward + likelihood + backward with activations resident in VMEM —
-    no second forward, no recompute, no XLA encode/likelihood segments, and
-    no per-member (E, F, N) h0/dh0 HBM round-trips. Only the
-    (parameter-only) prior term stays in XLA.
-    """
-    from bayesnf_tpu.ops import fused_mlp
-
-    weights = tuple(
-        params_b[field_lib.IDX_FIRST_DENSE + 2 * l] for l in range(num_w)
-    )
-    biases = tuple(
-        params_b[field_lib.IDX_FIRST_DENSE + 2 * l + 1] for l in range(num_w)
-    )
-    x_b = aug_b[..., :d, :]
-    seasonal_b = aug_b[..., d:, :]
-    obs_raw = jnp.stack(
-        [
-            params_b[field_lib.IDX_LOG_NOISE_SCALE],
-            params_b[field_lib.IDX_NB_SHAPE_RAW],
-            params_b[field_lib.IDX_ZINB_LOGIT],
-        ],
-        axis=-1,
-    )
-    losses, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = (
-        fused_mlp.fused_train(
-            distribution.value,
-            config.depth,
-            tile,
-            lik_scale,
-            config.input_scales,
-            config.fourier_degrees,
-            config.interactions,
-            x_b,
-            seasonal_b,
-            weights,
-            biases,
-            params_b[field_lib.IDX_LOG_SCALE_ADJ],
-            params_b[field_lib.IDX_FEATURE_SCALES],
-            params_b[field_lib.IDX_LAYER_SCALES],
-            params_b[field_lib.IDX_ACTIVATION_LOGIT],
-            obs_raw,
-            y_b,
-            precision=precision,
-            subtiles=subtiles,
-            n_valid=n_valid,
-        )
-    )
-    grads = field_lib.scatter_fused_train_grads(
-        config, dlsa, dfs, dws, dbs, dscales, dlogit, dobs
-    )
-    if data_shards > 1:
       # Each device saw only its row shard; the loss is a sum over rows,
       # so summing losses/grads over 'data' is exact. The prior term is
       # added after the reduction so it counts once per member.
@@ -398,7 +347,7 @@ def _make_losses_and_grads(
       grads = [g + pg for g, pg in zip(grads, prior_grads)]
     return losses, tuple(grads)
 
-  return fused_losses_and_grads if kernel == 'pallas' else xla_losses_and_grads
+  return losses_and_grads
 
 
 @functools.lru_cache(maxsize=32)
@@ -412,33 +361,18 @@ def _make_shardmap_train_fn(
     prior_weight: float,
     mesh,
     precision: str = 'f32',
-    tile: int | None = None,
-    subtiles: int = 1,
-    kernel: str = 'pallas',
 ):
-  """Ensemble training step under explicit `jax.shard_map` over the mesh.
+  """Ensemble training under explicit `jax.shard_map` over the mesh.
 
-  `kernel='pallas'` (the TPU-fast path) computes each step's loss/grad for
-  the whole local ensemble in one fused Pallas program
-  (`ops.fused_mlp.fused_train`; Pallas calls cannot be GSPMD-partitioned,
-  hence shard_map). `kernel='xla'` substitutes a vmapped autodiff
-  loss/grad with identical structure — it exists so a sharded-data
-  minibatch run has an XLA twin using the *same* per-shard RNG scheme,
-  making cross-backend agreement exact (up to matmul reassociation).
-
-  A data axis > 1 is supported for BOTH regimes:
-
-  - FULL BATCH (the large-N regime the axis exists for): each device runs
-    the kernel on its row shard and per-member losses/gradients `psum`
-    over 'data' — exact, since the loss is a sum over rows. Any N works:
-    rows are stored in the balanced layout (`parallel/minibatch.py`) and
-    each shard masks its padded tail via a dynamic in-kernel valid-row
-    count.
-  - MINIBATCH SGD: per-shard local permutation — every epoch each member
-    reshuffles each shard's own rows and draws `batch_size / data_shards`
-    rows per step from that shard (requires divisibility; a documented
-    RNG deviation from the single-shard scheme, see
-    `parallel/minibatch.py`). Losses/grads still psum over 'data'.
+  Serves the sharded-data minibatch whose batch divides the data axis:
+  every epoch each member reshuffles each shard's own rows and draws
+  `batch_size / data_shards` rows per step from that shard (a documented
+  RNG deviation from the single-shard scheme, see `parallel/minibatch.py`),
+  so rows never leave their shard; per-member losses/gradients `psum` over
+  'data'. A full batch over a sharded data axis is supported too (each
+  shard masks its padded tail of the balanced layout), as is an unsharded
+  data axis, where the per-member global permutation matches
+  `_make_train_fn`'s.
   """
   data_shards = mesh.shape[mesh_lib.DATA_AXIS]
   full_batch = batch_size == data_size
@@ -447,8 +381,7 @@ def _make_shardmap_train_fn(
         f'minibatch training over a sharded data axis requires '
         f'batch_size % data_shards == 0 (got {batch_size=}, '
         f'{data_shards=}): each shard contributes batch_size/data_shards '
-        "rows per step. Adjust batch_size or use backend='xla' (global-"
-        'permutation fallback).'
+        'rows per step.'
     )
   local_rows, _ = minibatch_lib.shard_counts(data_size, data_shards)
   row_pad = local_rows * data_shards - data_size
@@ -456,35 +389,24 @@ def _make_shardmap_train_fn(
 
   optimizer = optax.adam(learning_rate)
   num_batches = data_size // batch_size
-  if kernel == 'pallas':
-    from bayesnf_tpu.ops import fused_mlp
-
-    if tile is None:
-      tile = fused_mlp.pick_tile(config.width, min(local_batch, local_rows))
-  elif kernel != 'xla':
-    raise ValueError(f'Unknown shard_map kernel: {kernel!r}')
-
   losses_and_grads = _make_losses_and_grads(
       config,
       distribution,
       lik_scale=data_size / batch_size,
       prior_weight=prior_weight,
       precision=precision,
-      kernel=kernel,
-      tile=tile,
-      subtiles=subtiles,
       data_shards=data_shards,
   )
 
   def shard_train(params_b, opt_b, keys_b, aug_t, target):
     if row_pad and full_batch:
       # Balanced layout: every shard holds a valid prefix of n_s rows
-      # (counts differ by at most 1); the kernel masks the padded tail.
+      # (counts differ by at most 1); the padded tail is masked out.
       shard = jax.lax.axis_index(mesh_lib.DATA_AXIS)
       n_valid = minibatch_lib.local_valid_count(data_size, data_shards, shard)
     else:
       # Minibatch rows are gathered from the valid prefix only (below), so
-      # every batch row is real and the kernel needs no mask.
+      # every batch row is real and needs no mask.
       n_valid = None
 
     def one_step(carry, batch):
@@ -513,8 +435,7 @@ def _make_shardmap_train_fn(
           )(permute_keys)  # (E, consumed)
         else:
           # Per-shard local permutation of this shard's valid prefix
-          # (documented RNG deviation; see parallel/minibatch.py). Both
-          # shard_map kernels run exactly this code.
+          # (documented RNG deviation; see parallel/minibatch.py).
           shard = jax.lax.axis_index(mesh_lib.DATA_AXIS)
           nv = minibatch_lib.local_valid_count(data_size, data_shards, shard)
           idx = jax.vmap(
@@ -550,13 +471,12 @@ def _make_shardmap_train_fn(
   p_rows_t = jax.sharding.PartitionSpec(None, mesh_lib.DATA_AXIS)
   p_rows = jax.sharding.PartitionSpec(mesh_lib.DATA_AXIS)
   params_spec = (p_ens,) * num_leaves
-  opt_spec = backends_lib.adam_state_spec(config, learning_rate, p_ens)
+  opt_spec = adam_state_spec(config, learning_rate, p_ens)
   sharded = jax.shard_map(
       shard_train,
       mesh=mesh,
       in_specs=(params_spec, opt_spec, p_ens, p_rows_t, p_rows),
       out_specs=(params_spec, opt_spec, p_ens, p_ens),
-      # Pallas out_shapes carry no varying-mesh-axes metadata; skip the check.
       check_vma=False,
   )
   return jax.jit(sharded, donate_argnums=(0, 1, 2))
@@ -573,9 +493,6 @@ def _make_stream_train_fn(
     prior_weight: float,
     mesh,
     precision: str = 'f32',
-    tile: int | None = None,
-    subtiles: int = 1,
-    kernel: str = 'pallas',
     member_remix: bool = False,
 ):
   """One slice of the host-streaming training loop as a jitted program.
@@ -584,8 +501,8 @@ def _make_stream_train_fn(
   host-assembled batches: inputs are (S, F, B) batches shared across
   members (see `parallel/streaming.py` for the RNG scheme) with the batch
   dimension sharded over the mesh's 'data' axis; params/optimizer state
-  shard over 'ens' and are donated, so steady-state HBM holds the model
-  state plus the slice buffers in flight — never the dataset.
+  shard over 'ens' and are donated, so steady-state device memory holds
+  the model state plus the slice buffers in flight — never the dataset.
 
   `member_remix` decorrelates the members' SGD noise at ZERO extra
   host->device traffic: the program takes one extra raw-key argument and
@@ -605,14 +522,6 @@ def _make_stream_train_fn(
         f'streaming training over a sharded data axis requires '
         f'batch_size % data_shards == 0 (got {batch_size=}, {data_shards=}).'
     )
-  local_batch = batch_size // data_shards
-  if kernel == 'pallas':
-    from bayesnf_tpu.ops import fused_mlp
-
-    if tile is None:
-      tile = fused_mlp.pick_tile(config.width, local_batch)
-  elif kernel != 'xla':
-    raise ValueError(f'Unknown shard_map kernel: {kernel!r}')
 
   optimizer = optax.adam(learning_rate)
   losses_and_grads = _make_losses_and_grads(
@@ -621,9 +530,6 @@ def _make_stream_train_fn(
       lik_scale=data_size / batch_size,
       prior_weight=prior_weight,
       precision=precision,
-      kernel=kernel,
-      tile=tile,
-      subtiles=subtiles,
       data_shards=data_shards,
   )
 
@@ -668,7 +574,7 @@ def _make_stream_train_fn(
   p_slice = jax.sharding.PartitionSpec(None, mesh_lib.DATA_AXIS)
   p_rep = jax.sharding.PartitionSpec()
   params_spec = (p_ens,) * num_leaves
-  opt_spec = backends_lib.adam_state_spec(config, learning_rate, p_ens)
+  opt_spec = adam_state_spec(config, learning_rate, p_ens)
   in_specs = (params_spec, opt_spec, p_slice_t, p_slice)
   if member_remix:
     in_specs = in_specs + (p_rep,)
@@ -677,7 +583,6 @@ def _make_stream_train_fn(
       mesh=mesh,
       in_specs=in_specs,
       out_specs=(params_spec, opt_spec, p_ens),
-      # Pallas out_shapes carry no varying-mesh-axes metadata; skip the check.
       check_vma=False,
   )
   return jax.jit(sharded, donate_argnums=(0, 1))
@@ -698,7 +603,6 @@ def ensemble_map(
     checkpoint_dir: str | None = None,
     checkpoint_every: int | None = None,
     precision: str = 'f32',
-    backend: str = 'auto',
     stream_chunk_steps: int | None = None,
     stream_member_remix: bool = False,
 ) -> tuple[tuple, jax.Array]:
@@ -723,24 +627,15 @@ def ensemble_map(
       the run bit-exactly.
     checkpoint_every: epochs per checkpoint chunk (default: 10% of
       num_epochs, at least 1).
-    precision: 'f32' (default; on TPU the MXU already computes f32 dots
-      with bf16 operands), 'bf16' (explicit bf16 MXU operands, f32
-      parameters and accumulation), or 'highest' (multi-pass true-f32
-      MXU arithmetic, ~2-3x slower matmuls).
-    backend: 'xla', 'pallas' (fused Pallas MLP kernels via shard_map; a
-      sharded data axis is supported both full-batch — losses/grads psum
-      over 'data' — and minibatch, where each shard contributes
-      batch_size/data_shards rows per step via a per-shard local
-      permutation shared with the XLA shard_map twin; requires
-      batch_size % data_shards == 0), or 'auto' (pallas on TPU when the
-      mesh/batch allow it, with loud fallback to xla on kernel build
-      failure; xla otherwise).
+    precision: 'f32' (default: JAX's default matmul precision, which on
+      an H100 may run f32 dots as TF32), 'bf16' (explicit bf16 operands,
+      f32 parameters and accumulation), or 'highest' (exact f32 dots).
     stream_chunk_steps: when set (minibatch fits only), the dataset stays
       in HOST memory — pass `aug_features` as a numpy array or memmap —
       and batches are assembled on host and shipped in slices of this
-      many SGD steps, double-buffered against device compute. Device HBM
-      then holds O(slices in flight x batch rows) instead of O(N): the
-      regime for datasets larger than (aggregate) HBM. Uses one shared
+      many SGD steps, double-buffered against device compute. Device
+      memory then holds O(slices in flight x batch rows) instead of O(N): the
+      regime for datasets larger than (aggregate) device memory. Uses one shared
       per-epoch permutation across members, deterministic in (seed,
       epoch) — a documented RNG deviation; see `parallel/streaming.py`.
     stream_member_remix: (streaming only) each member repartitions every
@@ -755,7 +650,6 @@ def ensemble_map(
     (params, losses): params is the flat tuple with leading member axis
     (ensemble_size, ...); losses has shape (ensemble_size, num_epochs).
   """
-  from bayesnf_tpu.inference import backends
   from bayesnf_tpu.parallel import distributed as dist_lib
 
   if mesh is None:
@@ -786,13 +680,6 @@ def ensemble_map(
         '(set stream_chunk_steps); on-device minibatch training already '
         'permutes per member.'
     )
-  auto_resolved = backend == 'auto'
-  backend = backends.resolve_backend(
-      backend,
-      mesh,
-      full_batch=batch_size == data_size,
-      batch_divisible=batch_size % data_shards == 0,
-  )
   multiproc = dist_lib.is_multiprocess_mesh(mesh)
 
   padded = mesh_lib.pad_ensemble_size(ensemble_size, mesh)
@@ -814,14 +701,14 @@ def ensemble_map(
     aug_t = target = None
     row_pad = 0
   else:
-    # Features-major device layout (rows on the TPU lane dimension), with
+    # Features-major device layout (rows on the minor dimension), with
     # the balanced stored-row layout when the data axis is uneven
     # (N % data_devices != 0) — each shard holds a valid prefix, counts
-    # differing by at most 1 (parallel/minibatch.py). Both backends
-    # exclude the padding exactly (zero weights on the GSPMD path, an
-    # in-kernel valid-row mask under shard_map), and minibatch
-    # permutations never index it. One jitted, row-sharded program
-    # (docs/roadmap.md item 3 — was an eager transpose + convert + pads).
+    # differing by at most 1 (parallel/minibatch.py). The padding is
+    # excluded exactly (zero weights on the GSPMD path, a valid-row mask
+    # under shard_map), and minibatch permutations never index it. One
+    # jitted, row-sharded program instead of an eager transpose, convert
+    # and pads.
     row_pad = (-data_size) % data_shards
     aug_t, target = minibatch_lib.make_layout_fn(
         data_size, data_shards, None if multiproc else mesh
@@ -847,11 +734,9 @@ def ensemble_map(
         data_size=data_size,
         prior_weight=float(prior_weight),
         precision=precision,
-        # The RESOLVED backend: 'auto' picks per-platform, and the two
-        # backends differ numerically up to matmul reassociation, so a
-        # resume must refuse to continue xla-written chunks on pallas
-        # (or vice versa) rather than silently mixing numerics.
-        backend=backend,
+        # Pinned: every fit now runs the one XLA trainer, and checkpoints
+        # written before the field had a single value still carry it.
+        backend='xla',
         # The data-axis extent fixes the row layout, the psum
         # reduction grouping, AND the sharded-minibatch RNG scheme —
         # a resume on a different extent would silently change all
@@ -920,29 +805,16 @@ def ensemble_map(
       target = dist_lib.make_global(target, mesh_lib.data_sharding(mesh))
 
   def make_train(chunk_epochs):
-    if backend not in ('pallas', 'xla'):
-      raise ValueError(f'Unknown backend: {backend!r}')
-    # Sharded-data minibatch with a shard-divisible batch runs the
-    # shard_map program even on the XLA backend: both backends then share
-    # the per-shard permutation scheme (parallel/minibatch.py), so they
-    # agree batch-for-batch and rows never leave their shard. A
-    # non-divisible batch keeps the GSPMD path (global permutation,
-    # reference RNG). Recomputed here because `backend` can flip to 'xla'
-    # on a pallas probe fallback.
-    use_shardmap = backend == 'pallas' or (
+    # A sharded-data minibatch whose batch divides the data axis runs the
+    # shard_map program: every shard draws its rows from its own slice
+    # (parallel/minibatch.py), so rows never leave their shard. Everything
+    # else — full batch, an unsharded data axis, a non-divisible batch —
+    # runs the GSPMD program (global permutation, reference RNG).
+    if (
         data_shards > 1
         and batch_size < data_size
         and batch_size % data_shards == 0
-    )
-    if use_shardmap:
-      if backend == 'pallas':
-        from bayesnf_tpu.ops import fused_mlp
-
-        # Resolve the env var HERE so it participates in the factory's
-        # lru_cache key (a changed knob must not reuse a stale program).
-        subtiles = fused_mlp.resolve_subtiles()
-      else:
-        subtiles = 1
+    ):
       return _make_shardmap_train_fn(
           config,
           distribution,
@@ -953,8 +825,6 @@ def ensemble_map(
           float(prior_weight),
           mesh,
           precision,
-          subtiles=subtiles,
-          kernel=backend,
       )
     return _make_train_fn(
         config,
@@ -970,20 +840,6 @@ def ensemble_map(
     )
 
   epoch = start_epoch
-  # The probe's AOT program (jit dispatch never sees .lower().compile()
-  # results, so later chunks must reuse it or pay a second compile). Only
-  # one program is ever held: the probe runs once, and reuse requires the
-  # SAME chunk size and the SAME resolved subtile knob it was traced under
-  # (the resolve_subtiles contract — an env var changed mid-run must be a
-  # cache miss, not a silent reuse of the old tiling).
-  probe_fn = None
-  probe_key = None
-
-  def pallas_probe_key(chunk_epochs):
-    from bayesnf_tpu.ops import fused_mlp
-
-    return (chunk_epochs, fused_mlp.resolve_subtiles())
-
   if streaming:
     from bayesnf_tpu.parallel import streaming as streaming_lib
 
@@ -1005,15 +861,7 @@ def ensemble_map(
         else None
     )
 
-    def make_stream_fn(slice_steps, kernel):
-      if kernel not in ('pallas', 'xla'):
-        raise ValueError(f'Unknown backend: {kernel!r}')
-      if kernel == 'pallas':
-        from bayesnf_tpu.ops import fused_mlp
-
-        subtiles = fused_mlp.resolve_subtiles()
-      else:
-        subtiles = 1
+    def make_stream_fn(slice_steps):
       return _make_stream_train_fn(
           config,
           distribution,
@@ -1024,8 +872,6 @@ def ensemble_map(
           float(prior_weight),
           mesh,
           precision,
-          subtiles=subtiles,
-          kernel=kernel,
           member_remix=bool(stream_member_remix),
       )
 
@@ -1056,14 +902,11 @@ def ensemble_map(
             )
         )
 
-    (params, opt_state), backend = streaming_lib.run_stream_driver(
+    params, opt_state = streaming_lib.run_stream_driver(
         stream,
         mesh=mesh,
         multiproc=multiproc,
-        backend=backend,
-        auto_resolved=auto_resolved,
         make_fn=make_stream_fn,
-        probe_key_extra=lambda: pallas_probe_key(0)[1],
         state=(tuple(params), opt_state),
         start_step=epoch * num_batches,
         num_steps=num_epochs * num_batches,
@@ -1082,31 +925,7 @@ def ensemble_map(
         if checkpointer is None
         else min(checkpoint_every, num_epochs - epoch)
     )
-    if auto_resolved and backend == 'pallas':
-      # Auto-selected pallas may fail to *build* on an exotic config.
-      # Probe by tracing + compiling ahead-of-time — donated buffers are
-      # untouched until the compiled program executes, so the xla retry
-      # sees intact inputs; an *execution*-time failure past this point
-      # propagates unmasked (the donated inputs may already be consumed,
-      # and masking e.g. a runtime OOM behind an 'Array has been deleted'
-      # retry error would hide the actionable failure).
-      probe_key = pallas_probe_key(chunk)
-      try:
-        train_fn = make_train(chunk).lower(
-            tuple(params), opt_state, member_keys, aug_t, target
-        ).compile()
-        probe_fn = train_fn
-      except Exception as err:  # pylint: disable=broad-except
-        backends.warn_pallas_fallback(err)
-        backend = 'xla'
-        probe_key = None
-        train_fn = make_train(chunk)
-      auto_resolved = False  # probe once; later chunks fail loudly
-    elif backend == 'pallas' and probe_key == pallas_probe_key(chunk):
-      train_fn = probe_fn
-    else:
-      train_fn = make_train(chunk)
-    params, opt_state, member_keys, losses = train_fn(
+    params, opt_state, member_keys, losses = make_train(chunk)(
         tuple(params), opt_state, member_keys, aug_t, target
     )
     loss_chunks.append(dist_lib.host_value(losses))
@@ -1164,7 +983,6 @@ def fit_map(
     checkpoint_dir: str | None = None,
     checkpoint_every: int | None = None,
     precision: str = 'f32',
-    backend: str = 'auto',
     stream_chunk_steps: int | None = None,
     stream_member_remix: bool = False,
 ) -> tuple[tuple, np.ndarray]:
@@ -1206,7 +1024,6 @@ def fit_map(
         ),
         checkpoint_every=checkpoint_every,
         precision=precision,
-        backend=backend,
         stream_chunk_steps=stream_chunk_steps,
         stream_member_remix=stream_member_remix,
     )

@@ -4,7 +4,7 @@ Replaces the reference's TFP-based quantile code
 (`/root/reference/src/bayesnf/inference.py:42-100,271-333`) with a
 self-contained, vectorized Chandrupatla root-finder and moment-matching
 approximations. All paths are fixed-iteration-count and branch-free inside
-jit — TPU-friendly by construction (no data-dependent trip counts).
+jit — no data-dependent trip counts, so each search is one compiled loop.
 
 Semantics parity:
 
@@ -38,7 +38,7 @@ def find_root_chandrupatla(
 
   Finds roots of an elementwise function `f` whose output lanes are
   independent. Runs a fixed `max_iterations` iterations with convergence
-  masking (static trip count => one fused XLA loop on TPU).
+  masking (static trip count => one fused XLA loop).
 
   Args:
     f: maps an array of positions (broadcast shape of `low`/`high` and f's

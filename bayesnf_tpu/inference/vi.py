@@ -17,7 +17,7 @@ Here the loop is owned end-to-end:
 - The minibatch is re-drawn each step via a seeded permutation prefix
   (reference inference.py:704-709).
 
-TPU-first redesign: one jit over the ('ens', 'data') mesh; members are a
+Redesign: one jit over the ('ens', 'data') mesh; members are a
 leading sharded axis; `lax.scan` over steps with no host sync; posterior
 draws are produced inside the same program.
 """
@@ -29,7 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from bayesnf_tpu.inference import backends as backends_lib
+from bayesnf_tpu.inference import map as map_lib
 from bayesnf_tpu.models import field as field_lib
 from bayesnf_tpu.models import likelihoods
 from bayesnf_tpu.models import priors
@@ -100,7 +100,7 @@ def _make_vi_fn(
   full_batch = batch_size == data_size
 
   def unnormalized_target(z, aug_bt, y_b, w_b):
-    # Features-major layout (rows on the TPU lane axis), as in the MAP path.
+    # Features-major layout (rows on the minor axis), as in the MAP path.
     pred = field_lib.apply_field_t(
         config, z, aug_bt[:d], aug_bt[d:], compute_dtype=compute_dtype
     )
@@ -169,7 +169,7 @@ def _make_vi_fn(
   num_leaves = len(field_lib.param_specs(config))
   param_shards = (ens,) * num_leaves
   surr_shards = (param_shards, param_shards)
-  opt_shards = backends_lib.adam_state_spec(
+  opt_shards = map_lib.adam_state_spec(
       config, learning_rate, ens, surrogate=True
   )
   return jax.jit(
@@ -193,9 +193,8 @@ def _make_vi_init_fn(
   every key split, member surrogates, Adam state, per-member step keys.
 
   Cached at module scope — a jit wrapper created inside `fit_vi` would
-  recompile on every fit (measured ~2x throughput loss per bench rep on
-  the remote service); one program replaces ~60 primitive-sized eager
-  setup compiles (inference/map.py `_make_init_fn`, roadmap item 3).
+  recompile on every fit; one program replaces ~60 primitive-sized eager
+  setup compiles (inference/map.py `_make_init_fn`).
   The key derivation is the reference scheme verbatim (threefry is
   bit-identical under jit, so folding the splits in changes no RNG
   stream). With a (single-process) `mesh`, outputs come back already
@@ -224,7 +223,7 @@ def _make_vi_init_fn(
   param_shards = (ens,) * num_leaves
   out_shardings = (
       (param_shards, param_shards),
-      backends_lib.adam_state_spec(config, learning_rate, ens, surrogate=True),
+      map_lib.adam_state_spec(config, learning_rate, ens, surrogate=True),
       ens,
       mesh_lib.replicated_sharding(mesh),
   )
@@ -237,9 +236,6 @@ def _make_elbo_losses(
     lik_scale: float,
     sample_size: int,
     precision: str,
-    kernel: str,
-    tile: int | None,
-    subtiles: int,
     data_shards: int,
 ):
   """Per-step ensemble negative-ELBO function shared by the shard_map VI
@@ -247,108 +243,22 @@ def _make_elbo_losses(
 
   Returns `elbo_losses(surrogate, sample_keys, aug_bt, y_b, n_valid=None)
   -> (E_local,)` per-member negative ELBO (mean over MC draws), where
-  `aug_bt` is a shared (F, B) batch or per-member (E, F, B) batches.
-  kernel='pallas' returns fully data-reduced losses (the custom-VJP NLL
-  psums inside); kernel='xla' returns LOCAL losses with the replicated
-  terms (log q, prior) pre-scaled by 1/data_shards so the caller's psum
-  over 'data' counts them exactly once.
+  `aug_bt` is a shared (F, B) batch or per-member (E, F, B) batches. The
+  losses are LOCAL to the data shard, with the replicated terms (log q,
+  prior) pre-scaled by 1/data_shards so the caller's psum over 'data'
+  counts them exactly once.
   """
   d = config.num_inputs
-  num_w = config.depth + 1
   compute_dtype = {
       'f32': None, 'bf16': jnp.bfloat16, 'highest': 'highest'
   }[precision]
 
-  def make_kernel_nll(aug_bt, y_b, n_valid=None):
-    """lik_scale * -loglik as a custom-VJP op over the fused train kernel.
-
-    The kernel (`fused_mlp.fused_train`, any observation model) produces
-    the loss AND all its parameter gradients in one pass; wrapping it in
-    `custom_vjp` (the forward saves the gradients as residuals, the
-    backward scales them by the incoming per-member cotangent) lets JAX
-    autodiff compose the rest of the ELBO — the reparametrized sampling,
-    log q, and prior — around it untouched.
-    """
-    from bayesnf_tpu.ops import fused_mlp
-
-    x_b = aug_bt[..., :d, :]
-    seasonal_b = aug_bt[..., d:, :]
-
-    def run_kernel(z_f):
-      weights = tuple(
-          z_f[field_lib.IDX_FIRST_DENSE + 2 * l] for l in range(num_w)
-      )
-      biases = tuple(
-          z_f[field_lib.IDX_FIRST_DENSE + 2 * l + 1] for l in range(num_w)
-      )
-      obs_raw = jnp.stack(
-          [
-              z_f[field_lib.IDX_LOG_NOISE_SCALE],
-              z_f[field_lib.IDX_NB_SHAPE_RAW],
-              z_f[field_lib.IDX_ZINB_LOGIT],
-          ],
-          axis=-1,
-      )
-      return fused_mlp.fused_train(
-          distribution.value,
-          config.depth,
-          tile,
-          lik_scale,
-          config.input_scales,
-          config.fourier_degrees,
-          config.interactions,
-          x_b,
-          seasonal_b,
-          weights,
-          biases,
-          z_f[field_lib.IDX_LOG_SCALE_ADJ],
-          z_f[field_lib.IDX_FEATURE_SCALES],
-          z_f[field_lib.IDX_LAYER_SCALES],
-          z_f[field_lib.IDX_ACTIVATION_LOGIT],
-          obs_raw,
-          y_b,
-          precision=precision,
-          subtiles=subtiles,
-          n_valid=n_valid,
-      )
-
-    @jax.custom_vjp
-    def kernel_nll(z_f):
-      losses = run_kernel(z_f)[0]
-      if data_shards > 1:
-        losses = jax.lax.psum(losses, mesh_lib.DATA_AXIS)
-      return losses
-
-    def fwd(z_f):
-      losses, dlsa, dfs, dws, dbs, dscales, dlogit, dobs = run_kernel(z_f)
-      if data_shards > 1:
-        # Row shards: the NLL is a sum over rows, so losses psum here and
-        # the (local) gradient residuals psum after cotangent scaling.
-        losses = jax.lax.psum(losses, mesh_lib.DATA_AXIS)
-      return losses, (dlsa, dfs, dws, dbs, dscales, dlogit, dobs)
-
-    def bwd(res, g):
-      dlsa, dfs, dws, dbs, dscales, dlogit, dobs = res
-      grads = field_lib.scatter_fused_train_grads(
-          config, dlsa, dfs, dws, dbs, dscales, dlogit, dobs
-      )
-      def scaled(grad):
-        out = grad * g.reshape((-1,) + (1,) * (grad.ndim - 1))
-        if data_shards > 1:
-          out = jax.lax.psum(out, mesh_lib.DATA_AXIS)
-        return out
-      return (tuple(scaled(gr) for gr in grads),)
-
-    kernel_nll.defvjp(fwd, bwd)
-    return kernel_nll
-
-  def xla_nll(z, aug_bt, y_b, n_valid=None):
+  def nll(z, aug_bt, y_b, n_valid=None):
     """Local-shard NLL per (member, draw) via autodiff-able vmaps.
 
-    Twin of the fused kernel's NLL with the same draw-minor flattening;
-    per-member batches serve all of a member's draws through vmap axes
-    (no S-fold materialization). Returns the LOCAL shard's row sum — the
-    caller psums (kernel='xla' one_step) when the data axis is sharded.
+    Per-member batches serve all of a member's draws through vmap axes
+    (no S-fold materialization). Returns the LOCAL shard's row sum, flat
+    and draw-minor — the caller psums when the data axis is sharded.
     """
 
     def member(zm, aug_m, y_m):
@@ -364,35 +274,24 @@ def _make_elbo_losses(
 
     per_draw = jax.vmap(member, in_axes=(0, None, None))  # over S draws
     batch_axes = (0, None, None) if aug_bt.ndim == 2 else (0, 0, 0)
-    nll = jax.vmap(per_draw, in_axes=batch_axes)(z, aug_bt, y_b)
-    return nll.reshape(-1)  # (E_local * S,), draw-minor like z_f
+    return jax.vmap(per_draw, in_axes=batch_axes)(z, aug_bt, y_b).reshape(-1)
 
   def elbo_losses(surrogate, sample_keys, aug_bt, y_b, n_valid=None):
     """(E_local,) per-member negative ELBO (mean over MC draws)."""
     locs, raw_scales = surrogate
     scales = surrogate_scales(raw_scales)
-    # Per-member draws, exactly as the XLA path's per-member
+    # Per-member draws, exactly as `_make_vi_fn`'s per-member
     # `_surrogate_sample(locs, scales, sample_key, (sample_size,))`.
     z = jax.vmap(
         lambda l, s, k: _surrogate_sample(l, s, k, (sample_size,))
     )(locs, scales, sample_keys)  # leaves (E_local, S, ...)
     e_local = z[0].shape[0]
     z_f = tuple(p.reshape((e_local * sample_size,) + p.shape[2:]) for p in z)
-
-    if kernel == 'pallas':
-      # Per-member minibatches (leading dim E_local) feed the
-      # (E_local * S)-member kernel directly: `fused_train`'s index maps
-      # serve each member's one stored batch to all S of its draws — no
-      # S-fold HBM materialization (the kernel member m reads batch group
-      # m // S, matching the draw-major z_f reshape above). A shared
-      # (F, B) batch feeds every kernel member, as in full batch.
-      nll = make_kernel_nll(aug_bt, y_b, n_valid)(z_f)  # (ES,) reduced
-      rs = 1.0
-    else:
-      nll = xla_nll(z, aug_bt, y_b, n_valid)  # (ES,) LOCAL shard sum
-      rs = 1.0 / data_shards
+    rs = 1.0 / data_shards
     prior = jax.vmap(lambda p: priors.prior_log_prob(config, p))(z_f)
-    target = (rs * prior - nll).reshape(e_local, sample_size)
+    target = (rs * prior - nll(z, aug_bt, y_b, n_valid)).reshape(
+        e_local, sample_size
+    )
     logq = jax.vmap(
         jax.vmap(_surrogate_log_prob, in_axes=(None, None, 0)),
         in_axes=(0, 0, 0),
@@ -414,29 +313,16 @@ def _make_shardmap_vi_fn(
     kl_weight: float,
     mesh,
     precision: str = 'f32',
-    tile: int | None = None,
-    subtiles: int = 1,
-    kernel: str = 'pallas',
 ):
   """Ensemble-VI step under explicit `jax.shard_map` over the mesh.
 
-  `kernel='pallas'`: the ELBO's MC-sample axis is folded into the fused
-  train kernel's *member* axis — each reparametrized draw carries its own
-  sampled weights, so the local ensemble presents (E_local * sample_size)
-  independent parameter sets to one `fused_train` invocation (any
-  observation model), and each member's minibatch feeds all of its draws
-  through the kernel's index maps (no S-fold HBM copy). `kernel='xla'`
-  substitutes a vmapped autodiff NLL with identical RNG structure — the
-  XLA twin for sharded-minibatch agreement testing. Per-member RNG (step
-  key splits, draw sampling, minibatch permutation) matches `_make_vi_fn`
-  exactly on an unsharded data axis, so backends agree up to matmul
-  reassociation.
-
-  A data axis > 1 is supported for BOTH regimes (see
-  `inference/map.py:_make_shardmap_train_fn` — full batch psums the NLL
-  and its gradients over 'data'; minibatch uses the per-shard local
-  permutation of `parallel/minibatch.py`, resampled every step, and
-  requires batch_size % data_shards == 0).
+  Serves the sharded-data minibatch whose batch divides the data axis:
+  each shard resamples `batch_size / data_shards` of its own rows every
+  step (the per-shard local permutation of `parallel/minibatch.py`), and
+  the NLL and its gradients psum over 'data'. A full batch over a sharded
+  data axis is supported too (each shard masks its padded tail), as is an
+  unsharded data axis, where per-member RNG (step key splits, draw
+  sampling, minibatch permutation) matches `_make_vi_fn` exactly.
   """
   data_shards = mesh.shape[mesh_lib.DATA_AXIS]
   full_batch = batch_size == data_size
@@ -445,37 +331,25 @@ def _make_shardmap_vi_fn(
         f'minibatch VI over a sharded data axis requires '
         f'batch_size % data_shards == 0 (got {batch_size=}, '
         f'{data_shards=}): each shard contributes batch_size/data_shards '
-        "rows per step. Adjust batch_size or use backend='xla' (global-"
-        'permutation fallback).'
+        'rows per step.'
     )
   local_rows, _ = minibatch_lib.shard_counts(data_size, data_shards)
   row_pad = local_rows * data_shards - data_size
   local_batch = batch_size // data_shards if data_shards > 1 else batch_size
 
   optimizer = optax.adam(learning_rate)
-  if kernel == 'pallas':
-    from bayesnf_tpu.ops import fused_mlp
-
-    if tile is None:
-      tile = fused_mlp.pick_tile(config.width, min(local_batch, local_rows))
-  elif kernel != 'xla':
-    raise ValueError(f'Unknown shard_map kernel: {kernel!r}')
-
   elbo_losses = _make_elbo_losses(
       config,
       distribution,
       lik_scale=(data_size / batch_size) / kl_weight,
       sample_size=sample_size,
       precision=precision,
-      kernel=kernel,
-      tile=tile,
-      subtiles=subtiles,
       data_shards=data_shards,
   )
 
   def shard_fit(surrogate, opt_state, keys, aug_t, target):
     if row_pad and full_batch:
-      # Balanced layout: each shard masks its own padded tail in-kernel.
+      # Balanced layout: each shard masks its own padded tail.
       shard = jax.lax.axis_index(mesh_lib.DATA_AXIS)
       n_valid = minibatch_lib.local_valid_count(data_size, data_shards, shard)
     else:
@@ -495,7 +369,7 @@ def _make_shardmap_vi_fn(
         aug_bt, y_b = aug_t[:, idx].transpose(1, 0, 2), target[idx]
       else:
         # Per-shard local resampling each step (documented RNG deviation;
-        # see parallel/minibatch.py). Identical across shard_map kernels.
+        # see parallel/minibatch.py).
         shard = jax.lax.axis_index(mesh_lib.DATA_AXIS)
         nv = minibatch_lib.local_valid_count(data_size, data_shards, shard)
         idx = jax.vmap(
@@ -510,7 +384,7 @@ def _make_shardmap_vi_fn(
         return losses.sum(), losses
 
       (_, losses), grads = jax.value_and_grad(total, has_aux=True)(surrogate)
-      if kernel == 'xla' and data_shards > 1:
+      if data_shards > 1:
         # elbo_losses returned shard-local values (replicated terms
         # pre-scaled by 1/data_shards): reduce to the full ELBO here.
         losses = jax.lax.psum(losses, mesh_lib.DATA_AXIS)
@@ -535,7 +409,7 @@ def _make_shardmap_vi_fn(
   p_rows = jax.sharding.PartitionSpec(mesh_lib.DATA_AXIS)
   params_spec = (p_ens,) * num_leaves
   surr_spec = (params_spec, params_spec)
-  opt_spec = backends_lib.adam_state_spec(
+  opt_spec = map_lib.adam_state_spec(
       config, learning_rate, p_ens, surrogate=True
   )
   sharded = jax.shard_map(
@@ -560,17 +434,14 @@ def _make_stream_vi_fn(
     kl_weight: float,
     mesh,
     precision: str = 'f32',
-    tile: int | None = None,
-    subtiles: int = 1,
-    kernel: str = 'pallas',
     member_remix: bool = False,
 ):
   """One slice of the host-streaming VI loop as a jitted program.
 
   Advances every surrogate by `slice_steps` ELBO steps on host-assembled
   batches: (S, F, B) inputs shared across members AND across each
-  member's MC draws (the kernel/vmap broadcast a shared batch exactly as
-  in full-batch training), batch rows sharded over 'data'. Device RNG is
+  member's MC draws (vmap broadcasts a shared batch exactly as in
+  full-batch training), batch rows sharded over 'data'. Device RNG is
   only used for the reparametrized draws — the minibatch sequence comes
   from the host stream (`parallel/streaming.py`, per-step resample).
 
@@ -585,14 +456,6 @@ def _make_stream_vi_fn(
         f'streaming VI over a sharded data axis requires '
         f'batch_size % data_shards == 0 (got {batch_size=}, {data_shards=}).'
     )
-  local_batch = batch_size // data_shards
-  if kernel == 'pallas':
-    from bayesnf_tpu.ops import fused_mlp
-
-    if tile is None:
-      tile = fused_mlp.pick_tile(config.width, local_batch)
-  elif kernel != 'xla':
-    raise ValueError(f'Unknown shard_map kernel: {kernel!r}')
 
   optimizer = optax.adam(learning_rate)
   elbo_losses = _make_elbo_losses(
@@ -601,9 +464,6 @@ def _make_stream_vi_fn(
       lik_scale=(data_size / batch_size) / kl_weight,
       sample_size=sample_size,
       precision=precision,
-      kernel=kernel,
-      tile=tile,
-      subtiles=subtiles,
       data_shards=data_shards,
   )
 
@@ -620,7 +480,7 @@ def _make_stream_vi_fn(
         return losses.sum(), losses
 
       (_, losses), grads = jax.value_and_grad(total, has_aux=True)(surrogate)
-      if kernel == 'xla' and data_shards > 1:
+      if data_shards > 1:
         # elbo_losses returned shard-local values (replicated terms
         # pre-scaled by 1/data_shards): reduce to the full ELBO here.
         losses = jax.lax.psum(losses, mesh_lib.DATA_AXIS)
@@ -661,7 +521,7 @@ def _make_stream_vi_fn(
   p_slice = jax.sharding.PartitionSpec(None, mesh_lib.DATA_AXIS)
   params_spec = (p_ens,) * num_leaves
   surr_spec = (params_spec, params_spec)
-  opt_spec = backends_lib.adam_state_spec(
+  opt_spec = map_lib.adam_state_spec(
       config, learning_rate, p_ens, surrogate=True
   )
   in_specs = (surr_spec, opt_spec, p_ens, p_slice_t, p_slice)
@@ -715,7 +575,6 @@ def fit_vi(
     checkpoint_dir: str | None = None,
     checkpoint_every: int | None = None,
     precision: str = 'f32',
-    backend: str = 'auto',
     stream_chunk_steps: int | None = None,
     stream_member_remix: bool = False,
 ):
@@ -740,21 +599,13 @@ def fit_vi(
     checkpoint_dir: when set, optimization runs in `checkpoint_every`-step
       chunks persisted via orbax; an existing checkpoint resumes bit-exactly.
     checkpoint_every: steps per checkpoint chunk (default: 10% of steps).
-    precision: 'f32' (default; on TPU the MXU already computes f32 dots
-      with bf16 operands), 'bf16' (explicit bf16 MXU operands, f32
-      accumulation), or 'highest' (multi-pass true-f32 MXU arithmetic).
-    backend: 'xla', 'pallas' (fused Pallas MLP kernels with the MC-sample
-      axis folded into the kernel member axis; a sharded data axis is
-      supported both full-batch — NLL/grads psum over 'data' — and
-      minibatch, where each shard resamples batch_size/data_shards of its
-      own rows per step via the scheme shared with the XLA shard_map
-      twin; requires batch_size % data_shards == 0), or 'auto' (pallas on
-      TPU when the mesh/batch allow it, with loud fallback to xla on
-      kernel build failure; xla otherwise).
+    precision: 'f32' (default: JAX's default matmul precision, which on
+      an H100 may run f32 dots as TF32), 'bf16' (explicit bf16 operands,
+      f32 accumulation), or 'highest' (exact f32 dots).
     stream_chunk_steps: when set (minibatch fits only), the dataset stays
       in HOST memory — pass `aug_features` as numpy/memmap — and batches
       stream to the mesh in slices of this many steps, double-buffered
-      (datasets larger than HBM). Batches are drawn per step (fresh
+      (datasets larger than device memory). Batches are drawn per step (fresh
       permutation prefix, the reference's VI semantics) but SHARED across
       members, deterministically in (seed, step) — a documented RNG
       deviation; see `parallel/streaming.py`.
@@ -771,7 +622,6 @@ def fit_vi(
       losses: (E, num_steps) per-member loss history (x kl_weight).
       draws: flat param tuple with leading axes (E, sample_size_posterior).
   """
-  from bayesnf_tpu.inference import backends
   from bayesnf_tpu.parallel import distributed as dist_lib
 
   if mesh is None:
@@ -802,13 +652,6 @@ def fit_vi(
         '(set stream_chunk_steps); on-device minibatch VI already '
         'resamples per member.'
     )
-  auto_resolved = backend == 'auto'
-  backend = backends.resolve_backend(
-      backend,
-      mesh,
-      full_batch=batch_size == data_size,
-      batch_divisible=batch_size % data_shards == 0,
-  )
   multiproc = dist_lib.is_multiprocess_mesh(mesh)
   distribution = likelihoods.LikelihoodDist(observation_model)
 
@@ -826,8 +669,8 @@ def fit_vi(
     row_pad = 0
   else:
     # One jitted, row-sharded layout program; uneven data axes store the
-    # balanced padded layout (each shard a valid prefix) and both
-    # backends exclude the padding exactly (see ensemble_map).
+    # balanced padded layout (each shard a valid prefix), and the padding
+    # is excluded exactly (see ensemble_map).
     row_pad = (-data_size) % data_shards
     aug_t, target = minibatch_lib.make_layout_fn(
         data_size, data_shards, None if multiproc else mesh
@@ -853,9 +696,8 @@ def fit_vi(
         sample_size_divergence=int(sample_size_divergence),
         kl_weight=float(kl_weight),
         precision=precision,
-        # Resolved backend: see inference/map.py — a resume must not
-        # silently mix xla- and pallas-chunk numerics.
-        backend=backend,
+        # Pinned for checkpoint compatibility; see inference/map.py.
+        backend='xla',
         # Data-axis extent fixes row layout, psum grouping, and the
         # sharded-minibatch RNG scheme (see inference/map.py).
         data_shards=data_shards,
@@ -922,25 +764,13 @@ def fit_vi(
       target = dist_lib.make_global(target, mesh_lib.data_sharding(mesh))
 
   def make_fit(chunk_steps):
-    if backend not in ('pallas', 'xla'):
-      raise ValueError(f'Unknown backend: {backend!r}')
-    # Shard_map routing mirrors inference/map.py: pallas always; xla too
-    # for a sharded-data divisible minibatch, so both backends share the
-    # per-shard permutation scheme. Recomputed each call because
-    # `backend` can flip to 'xla' on a pallas probe fallback.
-    use_shardmap = backend == 'pallas' or (
+    # Routing mirrors inference/map.py: only a sharded-data minibatch whose
+    # batch divides the data axis runs the shard_map program.
+    if (
         data_shards > 1
         and batch_size < data_size
         and batch_size % data_shards == 0
-    )
-    if use_shardmap:
-      if backend == 'pallas':
-        from bayesnf_tpu.ops import fused_mlp
-
-        # Resolved here so the env knob is part of the lru_cache key.
-        subtiles = fused_mlp.resolve_subtiles()
-      else:
-        subtiles = 1
+    ):
       return _make_shardmap_vi_fn(
           config,
           distribution,
@@ -952,8 +782,6 @@ def fit_vi(
           float(kl_weight),
           mesh,
           precision,
-          subtiles=subtiles,
-          kernel=backend,
       )
     return _make_vi_fn(
         config,
@@ -970,17 +798,6 @@ def fit_vi(
     )
 
   step = start_step
-  # Probe AOT program + the (chunk, resolved subtiles) key it was traced
-  # under; reuse requires an exact key match (see inference/map.py — a
-  # BNF_FUSED_SUBTILES change mid-run must be a miss, not a stale reuse).
-  probe_fn = None
-  probe_key = None
-
-  def pallas_probe_key(chunk_steps):
-    from bayesnf_tpu.ops import fused_mlp
-
-    return (chunk_steps, fused_mlp.resolve_subtiles())
-
   if streaming:
     from bayesnf_tpu.parallel import streaming as streaming_lib
 
@@ -1002,15 +819,7 @@ def fit_vi(
         else None
     )
 
-    def make_stream_fn(slice_steps, kernel):
-      if kernel not in ('pallas', 'xla'):
-        raise ValueError(f'Unknown backend: {kernel!r}')
-      if kernel == 'pallas':
-        from bayesnf_tpu.ops import fused_mlp
-
-        subtiles = fused_mlp.resolve_subtiles()
-      else:
-        subtiles = 1
+    def make_stream_fn(slice_steps):
       return _make_stream_vi_fn(
           config,
           distribution,
@@ -1022,8 +831,6 @@ def fit_vi(
           float(kl_weight),
           mesh,
           precision,
-          subtiles=subtiles,
-          kernel=kernel,
           member_remix=bool(stream_member_remix),
       )
 
@@ -1050,25 +857,20 @@ def fit_vi(
             )
         )
 
-    (surrogate, opt_state, member_keys), backend = (
-        streaming_lib.run_stream_driver(
-            stream,
-            mesh=mesh,
-            multiproc=multiproc,
-            backend=backend,
-            auto_resolved=auto_resolved,
-            make_fn=make_stream_fn,
-            probe_key_extra=lambda: pallas_probe_key(0)[1],
-            state=(surrogate, opt_state, member_keys),
-            start_step=step,
-            num_steps=num_steps,
-            slice_steps=int(stream_chunk_steps),
-            checkpoint_steps=(
-                None if checkpointer is None else checkpoint_every
-            ),
-            on_chunk=on_chunk,
-            slice_extra_fn=slice_extra_fn,
-        )
+    surrogate, opt_state, member_keys = streaming_lib.run_stream_driver(
+        stream,
+        mesh=mesh,
+        multiproc=multiproc,
+        make_fn=make_stream_fn,
+        state=(surrogate, opt_state, member_keys),
+        start_step=step,
+        num_steps=num_steps,
+        slice_steps=int(stream_chunk_steps),
+        checkpoint_steps=(
+            None if checkpointer is None else checkpoint_every
+        ),
+        on_chunk=on_chunk,
+        slice_extra_fn=slice_extra_fn,
     )
     step = num_steps  # the non-streaming loop below is a no-op
   while step < num_steps:
@@ -1077,27 +879,7 @@ def fit_vi(
         if checkpointer is None
         else min(checkpoint_every, num_steps - step)
     )
-    if auto_resolved and backend == 'pallas':
-      # AOT trace-and-compile probe: catch kernel *build* failures while
-      # the donated inputs are still intact; execution-time failures past
-      # this point propagate unmasked (see inference/map.py).
-      probe_key = pallas_probe_key(chunk)
-      try:
-        fit_fn = make_fit(chunk).lower(
-            surrogate, opt_state, member_keys, aug_t, target
-        ).compile()
-        probe_fn = fit_fn
-      except Exception as err:  # pylint: disable=broad-except
-        backends.warn_pallas_fallback(err)
-        backend = 'xla'
-        probe_key = None
-        fit_fn = make_fit(chunk)
-      auto_resolved = False  # probe once; later chunks fail loudly
-    elif backend == 'pallas' and probe_key == pallas_probe_key(chunk):
-      fit_fn = probe_fn
-    else:
-      fit_fn = make_fit(chunk)
-    surrogate, opt_state, member_keys, losses = fit_fn(
+    surrogate, opt_state, member_keys, losses = make_fit(chunk)(
         surrogate, opt_state, member_keys, aug_t, target
     )
     loss_chunks.append(dist_lib.host_value(losses))

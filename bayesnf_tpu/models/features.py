@@ -10,7 +10,7 @@ Math parity with the reference encoders
   [cos(2*pi*2^k*x), sin(2*pi*2^k*x)] / (k+1) for k in [0, d).
 - *Interactions*: products of scaled input pairs.
 
-TPU-first design note: seasonal features depend only on the raw time column —
+Design note: seasonal features depend only on the raw time column —
 NOT on any learned parameter — so they are precomputed once per dataset
 (:func:`seasonal_features`) and carried alongside the inputs, instead of
 being recomputed inside every training step as the reference does
@@ -105,7 +105,7 @@ def fourier_features(
 ) -> jnp.ndarray:
   """Octave Fourier features of one (scaled) input dimension.
 
-  TPU note: the octave structure (angle_k = 2 * angle_{k-1}) lets every
+  The octave structure (angle_k = 2 * angle_{k-1}) lets every
   octave after the first come from the double-angle recurrence
   (cos2t = 2c^2-1, sin2t = 2sc) — 2 transcendentals + FMAs instead of 2d
   trig calls per element, and a trig-free backward. On the training hot
@@ -142,7 +142,7 @@ def fourier_features_t(
   """Features-major variant of :func:`fourier_features`: (N,) -> (2d, N).
 
   Rows (not columns) index the cos/sin octaves, so the large N axis stays
-  on the TPU lane dimension (see `field.apply_field_t`).
+  the minor dimension (see `field.apply_field_t`).
   """
   if max_degree <= 0:
     return jnp.zeros((0,) + x.shape, dtype=x.dtype)

@@ -1,16 +1,16 @@
 """The Bayesian neural field: a functional MLP over encoded coordinates.
 
 Math parity with the reference's Flax module `BayesianNeuralField1D`
-(`/root/reference/src/bayesnf/models.py:197-273`), redesigned TPU-first:
+(reference `src/bayesnf/models.py:197-273`), redesigned:
 
 - Parameters are a **flat, ordered tuple of arrays** described by
   :func:`param_specs` (a deterministic, documented ordering) instead of a
   Flax FrozenDict re-initialized inside the loss every step
   (reference inference.py:393-395). The same spec table drives the prior,
   the MAP init, the VI surrogate, and checkpointing.
-- The ensemble is a *leading vmapped axis of every kernel*: `apply_field`
+- The ensemble is a *leading vmapped axis of every computation*: `apply_field`
   is written for a single member and vectorized with `jax.vmap`, which XLA
-  lowers to batched matmuls on the MXU.
+  lowers to batched matmuls.
 - Seasonal features (which depend only on raw time, not on any learned
   parameter) are precomputed once and passed in, rather than recomputed
   per training step.
@@ -135,34 +135,6 @@ IDX_LAYER_SCALES = 6
 IDX_FIRST_DENSE = 7  # kernels/biases follow: (W_0, b_0, ..., W_out, b_out)
 
 
-def scatter_fused_train_grads(
-    config: FieldConfig, dlsa, dfs, dws, dbs, dscales, dlogit, dobs
-) -> list:
-  """Map `ops.fused_mlp.fused_train` gradient outputs onto param slots.
-
-  The kernel returns (losses, dlsa, dfs, dweights, dbiases, dscales,
-  dlogit, dobs); this is the single place that couples that output order
-  to the flat parameter layout above (used by both the MAP and VI
-  trainers). `dobs` columns are (log_noise_scale, nb_shape_raw,
-  zinb_logit). Leaves not touched by the kernel come back as zeros shaped
-  like `param_specs` (with `dobs`'s leading batch dims).
-  """
-  num_w = config.depth + 1
-  grads = [None] * len(param_specs(config))
-  grads[IDX_LOG_NOISE_SCALE] = dobs[..., 0]
-  grads[IDX_NB_SHAPE_RAW] = dobs[..., 1]
-  grads[IDX_ZINB_LOGIT] = dobs[..., 2]
-  grads[IDX_LOG_SCALE_ADJ] = dlsa
-  grads[IDX_FEATURE_SCALES] = dfs
-  grads[IDX_ACTIVATION_LOGIT] = dlogit
-  grads[IDX_LAYER_SCALES] = dscales
-  for l in range(num_w):
-    grads[IDX_FIRST_DENSE + 2 * l] = dws[l]
-    grads[IDX_FIRST_DENSE + 2 * l + 1] = dbs[l]
-  assert all(g is not None for g in grads)
-  return grads
-
-
 def param_specs(config: FieldConfig) -> tuple[ParamSpec, ...]:
   """The authoritative flat parameter ordering for a field model.
 
@@ -229,8 +201,7 @@ def init_params(
 def blended_act(z: jax.Array, w: jax.Array) -> jax.Array:
   """w * elu(z) + (1 - w) * tanh(z).
 
-  tanh lowers to the TPU VPU's fast hardware approximation; elu costs one
-  exp on the negative branch. The custom JVP derives both derivatives from
+  elu costs one exp on the negative branch. The custom JVP derives both derivatives from
   the forward's own values (elu' = elu + 1 for z < 0, tanh' = 1 - tanh^2),
   so the backward needs no additional transcendentals.
   """
@@ -306,16 +277,14 @@ def apply_field(
   """Forward pass of one ensemble member: (N, D) inputs -> (N,) predictions.
 
   Vectorize over the ensemble with `jax.vmap(apply_field, (None, 0, None,
-  None))`; XLA lowers the per-member matmuls to one batched MXU matmul.
+  None))`; XLA lowers the per-member matmuls to one batched matmul.
 
   Args:
     compute_dtype: optional matmul operand precision: `jnp.bfloat16` for
-      explicit bf16 MXU operands, or the string 'highest' for multi-pass
-      true-f32 MXU arithmetic (note the TPU default already truncates f32
-      dot operands to bf16, so None and jnp.bfloat16 coincide numerically
-      there). Parameters stay f32 and every dot accumulates in f32
-      (`preferred_element_type`). None (default) matches the reference's
-      numerics on the same backend.
+      explicit bf16 operands, or the string 'highest' for exact f32 dots.
+      Parameters stay f32 and every dot accumulates in f32
+      (`preferred_element_type`). None (default) runs at JAX's default
+      matmul precision, which on an H100 may compute f32 dots as TF32.
   """
   h = encode(config, params, x, seasonal)
 
@@ -332,7 +301,7 @@ def apply_field(
       # Multi-pass true-f32 dots, fusion-fenced like the other paths.
       return mixed.matmul_highest(h, kernel) + bias
     if compute_dtype is not None:
-      # Custom-VJP matmul: forward AND backward run bf16 on the MXU
+      # Custom-VJP matmul: forward AND backward run with bf16 operands
       # (a plain cast only accelerates the forward; see ops/mixed.py).
       return mixed.matmul_bf16(h, kernel) + bias
     # f32 matmul with fusion-fenced backward dots (see ops/mixed.py).
@@ -385,9 +354,8 @@ def aug_features_device(config: FieldConfig, x) -> jax.Array:
   """`[x | seasonal features]` as ONE jitted device program.
 
   The eager composition (sin/cos/scale/concat primitive by primitive)
-  costs a dozen separate compilations; on a remote-service transport each
-  tiny compile is ~0.5 s of round-trip, so fit-time setup uses this
-  single program instead (docs/roadmap.md item 3 measurements).
+  costs a dozen separate compilations, so fit-time setup uses this single
+  program instead.
   """
   return _aug_features_jit(config, jnp.asarray(x, dtype=jnp.float32))
 
@@ -427,30 +395,22 @@ def aug_features_host(
 
 
 # ---------------------------------------------------------------------------
-# Transposed (features-major) formulation: the training hot path on TPU.
-#
-# TPU arrays are physically tiled (8, 128) on the last two dims, so a
-# (rows, features) tensor with few features pads its 128-lane minor dim
-# catastrophically — profiling the v5e training step showed (E, N, 3) and
-# (E, N, 1) temporaries expanding 43-128x (a 28 MB array occupying 1.16 GB)
-# and dominating both HBM footprint and bandwidth. Laying the same
-# computation out as (features, rows) puts the huge row dimension on the
-# lane axis: zero padding, minimal traffic. `apply_field_t` is numerically
-# identical to `apply_field` (tested) and is what the trainers use.
+# Transposed (features-major) formulation: the trainers' and predictor's
+# hot path. Laying the computation out as (features, rows) keeps the large
+# row dimension minor, so every dense layer is one (width, fan_in) @
+# (fan_in, rows) matmul per member and the few-feature encode temporaries
+# stay dense. `apply_field_t` is numerically identical to `apply_field`
+# up to matmul reassociation (tested).
 # ---------------------------------------------------------------------------
 
 
-def encode_t_groups(
+def encode_t(
     config: FieldConfig,
     params: tuple,
     x_t: jax.Array,
     seasonal_t: jax.Array,
-) -> list:
-  """Features-major encode, one array per (scaled) feature group.
-
-  Returning the groups unconcatenated lets the fused Pallas trainer
-  assemble h0 in VMEM instead of materializing the concatenation in HBM.
-  """
+) -> jax.Array:
+  """Features-major encode: (D, N) inputs -> (encoded_dim, N)."""
   input_scales = jnp.asarray(config.input_scales, dtype=x_t.dtype)
   lsa = params[IDX_LOG_SCALE_ADJ]
   scaled_x = x_t / (input_scales * jnp.exp(lsa))[:, None]
@@ -466,18 +426,8 @@ def encode_t_groups(
     groups.append(jnp.prod(scaled_x[inter_idx, :], axis=1))
 
   group_scales = jax.nn.softplus(params[IDX_FEATURE_SCALES])
-  return [g * group_scales[i] for i, g in enumerate(groups)]
-
-
-def encode_t(
-    config: FieldConfig,
-    params: tuple,
-    x_t: jax.Array,
-    seasonal_t: jax.Array,
-) -> jax.Array:
-  """Features-major encode: (D, N) inputs -> (encoded_dim, N)."""
   return jnp.concatenate(
-      encode_t_groups(config, params, x_t, seasonal_t), axis=0
+      [g * group_scales[i] for i, g in enumerate(groups)], axis=0
   )
 
 
@@ -491,7 +441,7 @@ def apply_field_t(
   """Features-major forward: (D, N) inputs -> (N,) predictions.
 
   Same math as :func:`apply_field`; hidden states live as (width, N) so the
-  lane dimension is always the (large) row axis.
+  minor dimension is always the (large) row axis.
   """
   from bayesnf_tpu.ops import mixed
 

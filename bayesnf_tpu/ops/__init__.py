@@ -1,1 +1,1 @@
-"""TPU compute kernels and numerical primitives."""
+"""Precision-controlled matmuls and numerical primitives."""

@@ -2,24 +2,21 @@
 
 Three tiers (all f32-accumulating via `preferred_element_type`):
 
-- `matmul_f32`: plain dots. NOTE (verified on-device): under JAX's TPU
-  default matmul precision these already execute with bf16 MXU operands —
-  bit-identical to `matmul_bf16` there — so on TPU this is a labeling
-  default, not a slower path.
+- `matmul_f32`: plain dots at JAX's default matmul precision. On an H100
+  that default may run f32 dots on the tensor cores as TF32 (10 explicit
+  mantissa bits per operand), so this tier is close to, not equal to,
+  exact f32.
 - `matmul_bf16`: EXPLICIT bf16 operand casts, forward and backward (the
   custom VJP casts the cotangent too, so all three dots are uniformly
-  bf16 on any stack, and residuals are stored in bf16 — halving
-  activation memory traffic). Meaningful on backends whose default dot
-  precision is true f32 (e.g. CPU), and self-documenting on TPU.
-- `matmul_highest`: `Precision.HIGHEST` multi-pass true-f32 MXU
-  arithmetic on all three dots — the only way to get tighter-than-bf16
-  operands on TPU.
+  bf16 on any backend, and residuals are stored in bf16 — halving
+  activation memory traffic).
+- `matmul_highest`: `Precision.HIGHEST` on all three dots — exact f32
+  arithmetic, the reference tier.
 
-All tiers fence their backward dots with `optimization_barrier`:
-profiling the v5e training step showed XLA fusing the weight-gradient
-contraction (dW = h^T dz, a huge-N outer-product reduction) into its
-elementwise producer chain as a VPU multiply+reduce ~7x slower than the
-same contraction as a standalone MXU dot.
+All tiers fence their backward dots with `optimization_barrier`, so that
+XLA emits the weight-gradient contraction (dW = h^T dz, a huge-N
+outer-product reduction) as a standalone matmul instead of fusing it into
+its elementwise producer chain as a multiply+reduce.
 """
 
 import jax
@@ -28,7 +25,7 @@ import jax.numpy as jnp
 
 @jax.custom_vjp
 def matmul_bf16(a, b):
-  """a @ b with bf16 MXU operands and f32 accumulation, fwd and bwd."""
+  """a @ b with bf16 operands and f32 accumulation, fwd and bwd."""
   return jnp.dot(
       a.astype(jnp.bfloat16),
       b.astype(jnp.bfloat16),
@@ -46,7 +43,7 @@ def _fwd(a, b):
 def _bwd(res, g):
   a16, b16 = res
   g16 = g.astype(jnp.bfloat16)
-  # Fence from producer fusion so both dots hit the MXU (see matmul_f32).
+  # Fence from producer fusion so both dots stay matmuls (see matmul_f32).
   a16, b16, g16 = jax.lax.optimization_barrier((a16, b16, g16))
   da = jnp.dot(g16, b16.T, preferred_element_type=jnp.float32)
   db = jnp.dot(a16.T, g16, preferred_element_type=jnp.float32)
@@ -60,11 +57,10 @@ matmul_bf16.defvjp(_fwd, _bwd)
 def matmul_f32(a, b):
   """a @ b (f32) whose backward dots are fenced from producer fusion.
 
-  Profiling the v5e training step showed XLA fusing the weight-gradient
-  contraction (dW = h^T dz, a huge-N outer-product reduction) into its
-  elementwise producer chain as a VPU multiply+reduce — ~7x slower than the
-  same contraction as a standalone MXU dot. An `optimization_barrier` on
-  the backward operands forces materialization, letting XLA emit real dots.
+  An `optimization_barrier` on the backward operands forces their
+  materialization, so XLA emits the weight-gradient contraction as a real
+  matmul rather than fusing it into its elementwise producer chain as a
+  multiply+reduce. Whether the fence pays on the H100 is not measured yet.
   """
   return jnp.dot(a, b, preferred_element_type=jnp.float32)
 
@@ -86,11 +82,9 @@ matmul_f32.defvjp(_f32_fwd, _f32_bwd)
 
 @jax.custom_vjp
 def matmul_highest(a, b):
-  """a @ b with Precision.HIGHEST (multi-pass true-f32 MXU arithmetic).
+  """a @ b with Precision.HIGHEST (exact f32 arithmetic).
 
-  Same fusion fence on the backward dots as `matmul_f32` — without it XLA
-  can fuse the weight-gradient contraction into its elementwise producer
-  chain as a slow VPU multiply+reduce.
+  Same fusion fence on the backward dots as `matmul_f32`.
   """
   return jnp.dot(
       a, b, precision=jax.lax.Precision.HIGHEST,

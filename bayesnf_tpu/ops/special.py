@@ -1,7 +1,7 @@
 """Numerical special functions used across the framework.
 
 Self-contained (no TFP): branch-free, vectorized, XLA-friendly
-implementations suitable for use inside jit/vmap/scan on TPU.
+implementations suitable for use inside jit/vmap/scan.
 """
 
 import jax
@@ -51,68 +51,6 @@ def normal_cdf(x, loc=0.0, scale=1.0):
 
 def normal_quantile(q, loc=0.0, scale=1.0):
   return loc + scale * jsp_special.ndtri(q)
-
-
-def gammaln_stirling(x):
-  """log Gamma(x) for x > 0 via a shift-by-6 recurrence + Stirling series.
-
-  Uses only log/mul/add — safe inside Pallas kernels, where `lax.lgamma`
-  has no Mosaic lowering. Relative error < ~3e-4 in f32, finite wherever
-  the true value is f32-representable (x <~ 4e36; beyond that gammaln
-  itself exceeds f32 max). The shift keeps the series argument >= 6,
-  where the 3-term Stirling correction is exact to f32; above 1e6 the
-  unshifted series is used so the recurrence products never overflow —
-  NB training can drive the total_count argument arbitrarily large.
-  """
-  x = jnp.asarray(x, jnp.float32)
-  # Shifted form: gammaln(x) = gammaln(x + 6) - log(x (x+1) ... (x+5)).
-  # Evaluated at min(x, 1e6) so the recurrence products can never overflow
-  # (pairs <= ~1e12); above 1e6 the unshifted Stirling series is already
-  # exact to f32 and is selected instead.
-  xs = jnp.minimum(x, 1e6)
-  p0 = xs * (xs + 1.0)
-  p1 = (xs + 2.0) * (xs + 3.0)
-  p2 = (xs + 4.0) * (xs + 5.0)
-  z = xs + 6.0
-  zi = 1.0 / z
-  zi2 = zi * zi
-  series = zi * (
-      0.08333333333333333  # 1/12
-      + zi2 * (-0.002777777777777778  # -1/360
-               + zi2 * 0.0007936507936507937)  # 1/1260
-  )
-  stirling = (z - 0.5) * jnp.log(z) - z + 0.9189385332046727 + series
-  shifted = stirling - jnp.log(p0) - jnp.log(p1) - jnp.log(p2)
-  direct = (
-      (x - 0.5) * jnp.log(jnp.maximum(x, 1.0))
-      - x
-      + 0.9189385332046727
-      + 1.0 / (12.0 * jnp.maximum(x, 1.0))
-  )
-  return jnp.where(x > 1e6, direct, shifted)
-
-
-def digamma_stirling(x):
-  """digamma(x) for x > 0 via a shift-by-6 recurrence + asymptotic series.
-
-  Same kernel-safety rationale as `gammaln_stirling`. Absolute error
-  < ~1e-6 in f32 for x in (0, ~1e7].
-  """
-  x = jnp.asarray(x, jnp.float32)
-  # digamma(x) = digamma(x + 6) - sum_{i<6} 1/(x + i)
-  corr = (
-      1.0 / x + 1.0 / (x + 1.0) + 1.0 / (x + 2.0)
-      + 1.0 / (x + 3.0) + 1.0 / (x + 4.0) + 1.0 / (x + 5.0)
-  )
-  z = x + 6.0
-  zi = 1.0 / z
-  zi2 = zi * zi
-  series = zi2 * (
-      0.08333333333333333  # 1/12
-      + zi2 * (-0.008333333333333333  # -1/120
-               + zi2 * 0.003968253968253968)  # 1/252
-  )
-  return jnp.log(z) - 0.5 * zi - series - corr
 
 
 def nb_log_prob(x, total_count, logits):

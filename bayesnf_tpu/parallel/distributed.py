@@ -1,18 +1,20 @@
-"""Multi-host (DCN) scale-out helpers.
+"""Multi-host scale-out helpers.
 
 The reference is single-host only (`jax.pmap` over local devices; no
-`jax.distributed`, SURVEY.md §2.4). Here multi-host runs use the standard
-JAX distributed runtime plus the same ('ens', 'data') mesh, laid out so:
+`jax.distributed`, SURVEY.md §2.4). On one host, one process drives every
+local GPU through the ('ens', 'data') mesh and needs nothing from this
+module. Multi-host runs use the standard JAX distributed runtime plus the
+same mesh, laid out so:
 
-- the ensemble axis spans hosts (members are independent — zero DCN traffic
-  during training);
-- the data axis stays within each host's ICI domain (its loss all-reduce
-  never crosses DCN).
+- the ensemble axis spans hosts (members are independent — zero
+  cross-host traffic during training);
+- the data axis stays within each host (its loss all-reduce runs over the
+  host's NVLink and never crosses the network).
 
-Typical pod-slice usage (same script on every host):
+Typical multi-host usage (same script on every host, one process each):
 
     from bayesnf_tpu.parallel import distributed
-    distributed.initialize()                 # env-driven (TPU pods: no args)
+    distributed.initialize('host0:1234', num_processes=2, process_id=rank)
     mesh = distributed.multihost_mesh(data_devices_per_host=1)
     model.fit(df, seed, ensemble_size=256, mesh=mesh)
 
@@ -35,8 +37,9 @@ from bayesnf_tpu.parallel import mesh as mesh_lib
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
   """Initialize the JAX distributed runtime (no-op if already initialized).
 
-  On Cloud TPU pods all arguments are discovered from the environment;
-  elsewhere pass them explicitly (see `jax.distributed.initialize`).
+  Pass the coordinator address, the process count and this process's id
+  explicitly (see `jax.distributed.initialize`); a plain GPU host has no
+  cluster environment to discover them from.
   """
   if getattr(jax.distributed, 'is_initialized', lambda: False)():
     return
@@ -59,7 +62,7 @@ def multihost_mesh(data_devices_per_host: int = 1) -> Mesh:
 
   Devices are arranged host-major on the ensemble axis so that each host's
   local devices form contiguous ensemble groups, and the data axis (if > 1)
-  is built from devices of the same host (ICI, not DCN).
+  is built from devices of the same host.
   """
   devices = np.asarray(jax.devices())
   num_local = jax.local_device_count()

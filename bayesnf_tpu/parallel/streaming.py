@@ -1,21 +1,21 @@
 """Host-resident streaming minibatch pipeline.
 
 The on-device trainers keep the whole training set in device memory — the
-right call whenever it fits (HBM bandwidth beats PCIe/DCN by orders of
-magnitude, and the registry's largest config, sst at 221k rows, is a few
+right call whenever it fits (device-memory bandwidth beats the host link by
+orders of magnitude, and the registry's largest config, sst at 221k rows, is a few
 hundred MB). The streaming regime exists for the datasets that *don't*
 fit: the dataset stays in host RAM (or a numpy memmap on disk), and each
 SGD step's minibatch is assembled on host and shipped to the mesh in
-slices of ``stream_chunk_steps`` steps. Device HBM then holds O(slices in
+slices of ``stream_chunk_steps`` steps. Device memory then holds O(slices in
 flight x slice rows) instead of O(N): with the default throttle, roughly
 ``3 * stream_chunk_steps * batch_size`` rows.
 
-The pipeline is TPU-idiomatic double buffering with no extra machinery:
+The pipeline is plain double buffering with no extra machinery:
 dispatching a jitted slice program returns immediately (JAX async
 dispatch), so the host loop assembles and ``device_put``s slice k+1 while
 the device runs slice k. A depth-2 throttle (block on slice k-2's losses,
 a tiny (E, S) array) bounds how far the host can run ahead, which bounds
-the number of slice buffers alive in HBM.
+the number of slice buffers alive on the device.
 
 RNG scheme — a documented deviation from the reference
 (`/root/reference/src/bayesnf/inference.py:583-597`, one device-side
@@ -251,10 +251,7 @@ def run_stream_driver(
     *,
     mesh,
     multiproc: bool,
-    backend: str,
-    auto_resolved: bool,
     make_fn,
-    probe_key_extra,
     state: tuple,
     start_step: int,
     num_steps: int,
@@ -270,23 +267,15 @@ def run_stream_driver(
   and run through the trainer's slice program, double-buffered behind a
   depth-2 throttle (dispatch is async, so slice k+1's host assembly +
   transfer overlap slice k's compute; blocking on slice k-1's tiny losses
-  bounds live HBM slice buffers).
+  bounds live device slice buffers).
 
   Args:
     stream: the host batch stream positioned over the training set.
     mesh: the fit mesh ('data' axis shards batch rows).
     multiproc: whether the mesh spans processes (globalized transfers).
-    backend: the RESOLVED kernel ('pallas' | 'xla').
-    auto_resolved: True when 'auto' picked pallas — the first slice
-      program is built ahead-of-time so a kernel build failure can fall
-      back to xla while the donated inputs are still intact; later
-      failures propagate unmasked. The AOT program is reused for every
-      later slice with the same (slice steps, probe_key_extra()) key — an
-      env-knob change mid-run must recompile, not silently reuse.
-    make_fn: (slice_steps, kernel) -> slice program. The program takes
+    make_fn: (slice_steps) -> slice program. The program takes
       (*state, aug_dev, y_dev) and returns (*state, losses) with losses'
       trailing axis the slice's steps.
-    probe_key_extra: () -> hashable; extra AOT-reuse key (tiling knobs).
     state: the trainer's state tuple, threaded positionally.
     start_step: global step to resume from (chunk-aligned).
     num_steps: total steps of the full fit.
@@ -301,11 +290,10 @@ def run_stream_driver(
       way. Deterministic in the step, so resume replay holds.
 
   Returns:
-    (state, backend): final state and the kernel actually used.
+    The final state.
   """
   import jax  # local: keep module import-light for host-only tests
 
-  from bayesnf_tpu.inference import backends as backends_lib
   from bayesnf_tpu.parallel import distributed as dist_lib
   from bayesnf_tpu.parallel import mesh as mesh_lib
 
@@ -319,8 +307,6 @@ def run_stream_driver(
       mesh, jax.sharding.PartitionSpec()
   )
   n_state = len(state)
-  probe_fn = None
-  probe_key = None
   step = start_step
   while step < num_steps:
     chunk = (
@@ -344,27 +330,7 @@ def run_stream_driver(
             if multiproc
             else jax.device_put(extra_np, rep_spec),
         )
-      s = int(aug_np.shape[0])
-      if auto_resolved and backend == 'pallas':
-        probe_key = (s, probe_key_extra())
-        try:
-          probe_fn = (
-              make_fn(s, backend)
-              .lower(*state, aug_dev, y_dev, *extra)
-              .compile()
-          )
-          fn = probe_fn
-        except Exception as err:  # pylint: disable=broad-except
-          backends_lib.warn_pallas_fallback(err)
-          backend = 'xla'
-          probe_key = None
-          fn = make_fn(s, backend)
-        auto_resolved = False
-      elif backend == 'pallas' and probe_key == (s, probe_key_extra()):
-        fn = probe_fn
-      else:
-        fn = make_fn(s, backend)
-      out = fn(*state, aug_dev, y_dev, *extra)
+      out = make_fn(int(aug_np.shape[0]))(*state, aug_dev, y_dev, *extra)
       state, losses_s = tuple(out[:n_state]), out[n_state]
       chunk_losses.append(losses_s)
       if len(chunk_losses) > 1:
@@ -374,4 +340,4 @@ def run_stream_driver(
     )
     step += chunk
     on_chunk(state, losses_c, step)
-  return state, backend
+  return state

@@ -17,13 +17,6 @@ Outputs: docs/tutorials/figures/chickenpox_*.png + stdout metrics block
 import os
 import time
 
-# Persist XLA/Mosaic compilations across runs (first-time kernel compile for
-# a new configuration is minutes; cached reruns start in seconds).
-os.environ.setdefault(
-    'JAX_COMPILATION_CACHE_DIR',
-    os.path.expanduser('~/.cache/bayesnf_tpu_jax'),
-)
-
 import jax
 import matplotlib
 
@@ -33,8 +26,11 @@ import numpy as np
 import pandas as pd
 
 from bayesnf_tpu import BayesianNeuralFieldMAP
+from bayesnf_tpu.utils import profiling
 
 FIGDIR = os.path.join(os.path.dirname(__file__), 'figures')
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 
 # Data-viz palette (skill reference instance, light mode).
 C1, C2, C3 = '#2a78d6', '#eb6834', '#1baf7a'
@@ -103,6 +99,8 @@ def make_dataset(seed=0):
 
 def main():
   os.makedirs(FIGDIR, exist_ok=True)
+  # Cached reruns skip the XLA compile of the fit and predict programs.
+  profiling.enable_compile_cache(os.path.join(REPO_ROOT, '.jax_cache'))
   print(f'devices: {jax.devices()}')
 
   df = make_dataset()
@@ -136,14 +134,10 @@ def main():
       timetype='index',
       standardize=['latitude', 'longitude'],
   )
-  # The fused single-pass Pallas kernels are the flagship TPU path
-  # (see PARITY.md throughput table); XLA remains the portable default.
-  backend = 'pallas' if jax.default_backend() == 'tpu' else 'xla'
   fit_kwargs = dict(
       seed=jax.random.PRNGKey(0), ensemble_size=64, learning_rate=0.005,
-      backend=backend,
   )
-  # Warm the kernel/XLA caches with a tiny fit at the same shapes, so the
+  # Warm the XLA caches with a tiny fit at the same shapes, so the
   # reported fit time measures training, not one-time compilation.
   t0 = time.perf_counter()
   model.fit(df_train, num_epochs=10, **fit_kwargs)

@@ -6,7 +6,7 @@ Launched as `python _multiprocess_worker.py <process_id> <num_processes>
 4) virtual CPU devices per process. Joins the distributed runtime, fits
 over the multi-host mesh, and prints one JSON line with the results.
 `light` mode runs MAP + streamed MAP + both predict paths only (the
-4-process 2x2 grid leg — VERDICT r4 item 5 — exercises host-major
+4-process 2x2 grid leg exercises host-major
 placement and cross-host gathers without repeating the VI/checkpoint
 coverage the 2-process legs own).
 """
@@ -101,7 +101,6 @@ def main():
       batch_size=32,
       prior_weight=1.0,
       mesh=mesh,
-      backend='xla',
   )
 
   # Row-parallel prediction over the same multi-process mesh: every
@@ -130,7 +129,6 @@ def main():
         ensemble_dims=1,
         chunk_size=32,
         mesh=mesh,
-        backend='xla',
     )
 
     _, vi_losses, vi_draws = vi_lib.fit_vi(
@@ -146,7 +144,6 @@ def main():
         sample_size_posterior=2,
         batch_size=32,
         mesh=mesh,
-        backend='xla',
     )
 
   # Host-streaming MAP over the multi-process mesh: every process
@@ -158,7 +155,7 @@ def main():
       aug_host, y_host, config, likelihoods.LikelihoodDist.NORMAL,
       ensemble_size=6, learning_rate=0.01, num_epochs=4,
       seed=jax.random.PRNGKey(0), batch_size=32, prior_weight=1.0,
-      mesh=mesh, backend='xla', stream_chunk_steps=2,
+      mesh=mesh, stream_chunk_steps=2,
   )
   out_stream = {
       'stream_map_losses': np.asarray(stream_losses).tolist(),
@@ -174,7 +171,7 @@ def main():
         aug_host, y_host, jax.random.PRNGKey(1), 'NORMAL', config,
         ensemble_size=4, learning_rate=0.01, num_epochs=3,
         sample_size_divergence=2, sample_size_posterior=2, batch_size=32,
-        mesh=mesh, backend='xla', stream_chunk_steps=2,
+        mesh=mesh, stream_chunk_steps=2,
     )
     out_stream['stream_vi_losses'] = np.asarray(stream_vi_losses).tolist()
 
@@ -217,7 +214,7 @@ def main():
     common = dict(
         ensemble_size=6, learning_rate=0.01, num_epochs=4,
         seed=jax.random.PRNGKey(0), batch_size=32, prior_weight=1.0,
-        mesh=mesh, backend='xla', checkpoint_dir=ckpt_dir,
+        mesh=mesh, checkpoint_dir=ckpt_dir,
         checkpoint_every=2,
     )
     interrupted = dict(common, num_epochs=2)
@@ -239,7 +236,7 @@ def main():
     stream_common = dict(
         ensemble_size=6, learning_rate=0.01, num_epochs=4,
         seed=jax.random.PRNGKey(0), batch_size=32, prior_weight=1.0,
-        mesh=mesh, backend='xla', stream_chunk_steps=2,
+        mesh=mesh, stream_chunk_steps=2,
         checkpoint_dir=os.path.join(ckpt_dir, 'stream'), checkpoint_every=2,
     )
     map_lib.ensemble_map(

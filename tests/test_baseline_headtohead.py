@@ -1,7 +1,7 @@
 """CI gate: BayesNF-TPU beats the executed sklearn baselines.
 
 Runs the head-to-head runner's synthetic leg (one seed, full budgets —
-the same protocol as the committed `BASELINES_r05.json` artifact, same
+the same protocol as `cli.baseline_headtohead`'s artifact, same
 code path) and asserts BayesNF-MAP wins. Everything is seeded (sklearn
 `random_state=0`, fixed jax keys, CPU numerics), so these are pinned
 deterministic comparisons, not statistical ones: a regression in either

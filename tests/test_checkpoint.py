@@ -118,7 +118,7 @@ def test_legacy_fingerprint_recipe_still_resumes(tmp_path):
   conditional, so those directories carry a different digest of the SAME
   configuration. The trainer passes the old-recipe digest as a legacy
   fingerprint — rewrite the marker to it and the resume must proceed
-  bit-exactly (ADVICE r4 #1).
+  bit-exactly.
   """
   import json as json_lib
   import os
@@ -282,12 +282,63 @@ def test_fingerprint_marker_survives_torn_reads(tmp_path):
   assert [p for p in tmp_path.iterdir() if 'tmp' in p.name] == []
 
 
-def test_backend_switch_refuses_resume(tmp_path):
-  """xla- and pallas-trained chunks differ up to matmul reassociation, so a
-  resume under a different RESOLVED backend must refuse, not silently mix
-  numerics (the fingerprint includes the resolved backend)."""
+def _captured_fingerprint(run):
+  """The fingerprint a trainer hands its TrainCheckpointer."""
+  from bayesnf_tpu.utils import checkpoint as ckpt_lib
+
+  captured = {}
+  real_ctor = ckpt_lib.TrainCheckpointer
+
+  class Capturing(real_ctor):
+
+    def __init__(self, directory, **kwargs):
+      captured['fingerprint'] = kwargs['fingerprint']
+      super().__init__(directory, **kwargs)
+
+  ckpt_lib.TrainCheckpointer = Capturing
+  try:
+    run()
+  finally:
+    ckpt_lib.TrainCheckpointer = real_ctor
+  return captured['fingerprint']
+
+
+def test_map_fingerprint_keeps_pinned_backend(tmp_path):
+  """Checkpoints written while the trainer had a backend choice recorded
+  the resolved 'xla' in their fingerprint; the one remaining trainer pins
+  that value, so those directories keep resuming."""
+  from bayesnf_tpu.parallel import mesh as mesh_lib
+  from bayesnf_tpu.utils import checkpoint as ckpt_lib
+
   config, aug, y = _setup()
-  ckdir = str(tmp_path / 'ck')
-  _run(config, aug, y, checkpoint_dir=ckdir, backend='xla')
-  with pytest.raises(ValueError, match='different configuration'):
-    _run(config, aug, y, checkpoint_dir=ckdir, backend='pallas')
+  got = _captured_fingerprint(lambda: _run(
+      config, aug, y, checkpoint_dir=str(tmp_path / 'ck'),
+      mesh=mesh_lib.default_mesh(),
+  ))
+  want = ckpt_lib.run_fingerprint(
+      kind='map', config=config, distribution='NORMAL', ensemble_size=2,
+      learning_rate=0.01, batch_size=20, data_size=int(y.shape[0]),
+      prior_weight=1.0, precision='f32', backend='xla', data_shards=1,
+      stream=False,
+  )
+  assert got == want
+
+
+def test_vi_fingerprint_keeps_pinned_backend(tmp_path):
+  from bayesnf_tpu.inference import vi as vi_lib
+  from bayesnf_tpu.utils import checkpoint as ckpt_lib
+
+  config, aug, y = _setup()
+  got = _captured_fingerprint(lambda: vi_lib.fit_vi(
+      aug, y, jax.random.PRNGKey(0), 'NORMAL', config, ensemble_size=2,
+      learning_rate=0.01, num_epochs=2, sample_size_divergence=2,
+      sample_size_posterior=2, kl_weight=0.5, batch_size=20,
+      checkpoint_dir=str(tmp_path / 'ck'),
+  ))
+  want = ckpt_lib.run_fingerprint(
+      kind='vi', config=config, distribution='NORMAL', ensemble_size=2,
+      learning_rate=0.01, batch_size=20, data_size=int(y.shape[0]),
+      sample_size_divergence=2, kl_weight=0.5, precision='f32',
+      backend='xla', data_shards=1, stream=False,
+  )
+  assert got == want

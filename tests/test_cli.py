@@ -198,13 +198,13 @@ def test_registry_covers_reference_suite():
 
 @pytest.mark.slow
 def test_selftest_cli_agrees_on_cpu(capsys, tmp_path):
-  """The hardware self-test passes on the CI mesh (Pallas in interpreter
-  mode): backend agreement through the real fit/predict entry points.
+  """The hardware self-test passes on the CI mesh: default-precision vs
+  exact-f32 agreement through the real fit/predict entry points.
 
   conftest.py pins JAX_PLATFORMS=cpu for the whole suite; the guard below
-  makes that assumption explicit (the check tolerances are also expected
-  to hold on TPU — the agreement metric is scale-aware — but this test's
-  contract is the deterministic CPU interpreter path)."""
+  makes that assumption explicit (the check tolerances are meant to hold
+  on the GPU too, where the default precision is TF32 — the agreement
+  metric is scale-aware — but this test's contract is the CPU path)."""
   import jax
 
   from bayesnf_tpu.cli import selftest

@@ -1,9 +1,9 @@
-"""Cold-fit compile-count regression guard (docs/roadmap.md item 3).
+"""Cold-fit compile-count regression guard.
 
 A cold `fit` used to trigger ~120 primitive-sized eager-setup compiles
 (un-jitted vmapped init, eager seasonal encode, opt-state templates,
-per-leaf reshards) — harmless on a PCIe host but ~0.5 s of service RPC
-EACH on a remote-attached TPU. The setup path now runs as a handful of
+per-leaf reshards), each a compile and a dispatch of its own. The setup
+path now runs as a handful of
 jitted programs (trainer `init_all`, `minibatch.make_layout_fn`,
 `field.aug_features_device`), with outputs born in the train program's
 sharding. This test pins the program count so an innocent-looking eager
@@ -95,7 +95,7 @@ def test_cold_fit_compile_count_stays_small(tmp_path):
   # singleton utilities; the eager-setup regression this guards against
   # shows up as tens of extra programs, far past each bound.
   #
-  # LOWER bounds too (ADVICE r4 #2): the drain parses a private jax
+  # LOWER bounds too: the drain parses a private jax
   # logger's 'Finished XLA compilation of' lines — if jax renames either,
   # drain() returns [] and every upper bound passes vacuously, silently
   # disabling this guard. A cold fit/predict MUST compile at least one

@@ -11,6 +11,7 @@ from bayesnf_tpu.inference import vi as vi_lib
 from bayesnf_tpu.models import field as field_lib
 from bayesnf_tpu.models import likelihoods
 from bayesnf_tpu.parallel import mesh as mesh_lib
+from bayesnf_tpu.parallel import minibatch as minibatch_lib
 
 
 def _small_config(width=8, depth=1):
@@ -268,58 +269,58 @@ class TestPredict:
       # Integer-valued quantiles: must match exactly.
       np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-  def test_mesh_pallas_forward_matches_xla_mesh(self):
-    """Mesh-parallel fused predict: the shard_map'd Pallas forward over an
-    ('ens' x 'data') mesh agrees with the XLA mesh path (and hence, via
-    the meshless agreement tests, with the single-program oracle). N=90
-    exercises chunk padding of the row shards."""
+  def test_mesh_zinb_matches_single_program(self):
+    """ZINB predict over an ('ens' x 'data') mesh: means match and the
+    integer quantiles are identical to the meshless program (N=70 pads
+    the row shards)."""
     config = _small_config()
-    x, y = _small_data(n=90)
-    params = self._fit(config, x, y)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    m_x, q_x = predict_lib.predict_bnf(
-        x, 'NORMAL', params, config, (0.5, 0.975), ensemble_dims=2,
-        chunk_size=32, mesh=mesh, backend='xla',
-    )
-    m_p, q_p = predict_lib.predict_bnf(
-        x, 'NORMAL', params, config, (0.5, 0.975), ensemble_dims=2,
-        chunk_size=32, mesh=mesh, backend='pallas',
-    )
-    np.testing.assert_allclose(
-        np.asarray(m_x), np.asarray(m_p), rtol=1e-4, atol=1e-5
-    )
-    for a, b in zip(q_x, q_p):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=1e-4, atol=1e-4
-      )
-
-  def test_mesh_pallas_forward_matches_xla_mesh_nb(self):
-    """Count-model mesh-parallel fused predict: integer quantiles from the
-    sharded fused forward match the XLA mesh path within one count."""
-    config = _small_config()
-    x, y = _small_data(n=70)
-    y_nb = np.round(np.exp(np.asarray(y) / 4.0)).astype(np.float32)
+    x, _ = _small_data(n=70)
+    y = np.random.default_rng(3).poisson(3.0, size=70).astype(np.float32)
+    y[::7] = 0.0
     params, _ = map_lib.ensemble_map(
-        _aug(config, x), jnp.asarray(y_nb), config,
-        likelihoods.LikelihoodDist.NB,
-        ensemble_size=4, learning_rate=0.01, num_epochs=30,
+        _aug(config, x), jnp.asarray(y), config,
+        likelihoods.LikelihoodDist.ZINB,
+        ensemble_size=4, learning_rate=0.01, num_epochs=20,
         seed=jax.random.PRNGKey(0),
     )
     params = tuple(p[jnp.newaxis] for p in params)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    m_x, q_x = predict_lib.predict_bnf(
-        x, 'NB', params, config, (0.5, 0.9), ensemble_dims=2,
-        chunk_size=32, mesh=mesh, backend='xla',
+    m1, q1 = predict_lib.predict_bnf(
+        x, 'ZINB', params, config, (0.5, 0.9), ensemble_dims=2,
+        chunk_size=32,
     )
-    m_p, q_p = predict_lib.predict_bnf(
-        x, 'NB', params, config, (0.5, 0.9), ensemble_dims=2,
-        chunk_size=32, mesh=mesh, backend='pallas',
+    m2, q2 = predict_lib.predict_bnf(
+        x, 'ZINB', params, config, (0.5, 0.9), ensemble_dims=2,
+        chunk_size=32, mesh=mesh_lib.default_mesh(data_devices=2),
     )
-    np.testing.assert_allclose(
-        np.asarray(m_x), np.asarray(m_p), rtol=1e-4, atol=1e-5
+    np.testing.assert_allclose(np.asarray(m1), np.asarray(m2), rtol=1e-6)
+    for a, b in zip(q1, q2):
+      np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+  def test_mesh_vi_draws_match_single_program(self):
+    """The VI public layout (groups x samples x members, ensemble_dims=3)
+    over a mesh matches the meshless program."""
+    config = _small_config()
+    x, y = _small_data(n=90)
+    _, _, draws = vi_lib.fit_vi(
+        _aug(config, x), y, jax.random.PRNGKey(0), 'NORMAL', config,
+        ensemble_size=4, learning_rate=0.02, num_epochs=10,
+        sample_size_divergence=2, sample_size_posterior=3,
     )
-    for a, b in zip(q_x, q_p):
-      assert np.max(np.abs(np.asarray(a) - np.asarray(b))) <= 1.0
+    params = tuple(np.asarray(d)[np.newaxis] for d in draws)  # (1, 4, 3, ..)
+    m1, q1 = predict_lib.predict_bnf(
+        x, 'NORMAL', params, config, (0.5, 0.975), ensemble_dims=3,
+        chunk_size=32,
+    )
+    m2, q2 = predict_lib.predict_bnf(
+        x, 'NORMAL', params, config, (0.5, 0.975), ensemble_dims=3,
+        chunk_size=32, mesh=mesh_lib.default_mesh(data_devices=4),
+    )
+    assert np.asarray(m2).shape == (1, 4, 3, 90)
+    np.testing.assert_allclose(np.asarray(m1), np.asarray(m2), rtol=1e-6)
+    for a, b in zip(q1, q2):
+      np.testing.assert_allclose(
+          np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-5
+      )
 
   def test_approximate_close_to_exact(self):
     config = _small_config()
@@ -338,180 +339,169 @@ class TestPredict:
     )
 
 
-class TestPallasBackend:
+def _count_data(n=96, seed=5):
+  rng = np.random.default_rng(seed)
+  t = np.arange(n, dtype=np.float32) % 50
+  s = rng.normal(size=n).astype(np.float32)
+  x = np.stack([t, s], -1)
+  y = rng.poisson(np.exp(0.5 * np.sin(t / 8) + 1.0)).astype(np.float32)
+  y[::9] = 0.0  # exercise the ZINB zero branch
+  return x, y
 
-  def test_matches_xla_backend(self):
-    config = _small_config(width=16, depth=2)
-    x, y = _small_data(n=96)
-    common = dict(
+
+def _assert_fits_agree(got, want, first_rtol=1e-5, rtol=1e-3, atol=0.0):
+  """Same seed, same batches: losses agree at step 1 (identical params)
+  and stay close along the trajectory (only reduction order differs)."""
+  (p_a, l_a), (p_b, l_b) = got, want
+  l_a, l_b = np.asarray(l_a), np.asarray(l_b)
+  np.testing.assert_allclose(l_a[:, 0], l_b[:, 0], rtol=first_rtol)
+  np.testing.assert_allclose(l_a, l_b, rtol=rtol, atol=atol)
+  for a, b in zip(jax.tree_util.tree_leaves(p_a),
+                  jax.tree_util.tree_leaves(p_b)):
+    np.testing.assert_allclose(
+        np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
+    )
+
+
+class TestShardedMatchesResident:
+  """Sharded (GSPMD or shard_map) MAP training on the 8-device CPU mesh
+  against the unsharded resident program of the same seed."""
+
+  def _common(self, config, x, y, **kw):
+    return dict(
         aug_features=_aug(config, x), target=y, config=config,
         distribution=likelihoods.LikelihoodDist.NORMAL, ensemble_size=2,
-        learning_rate=0.01, num_epochs=8, seed=jax.random.PRNGKey(0),
+        learning_rate=0.01, num_epochs=8, seed=jax.random.PRNGKey(0), **kw,
     )
-    p_x, l_x = map_lib.ensemble_map(backend='xla', **common)
-    p_p, l_p = map_lib.ensemble_map(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    # Same math, same RNG; only matmul tiling differs (f32 tolerance).
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=1e-3)
-    for a, b in zip(p_x, p_p):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
 
-  def test_minibatch_pallas(self):
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=96)
-    params, losses = map_lib.ensemble_map(
-        _aug(config, x), y, config, likelihoods.LikelihoodDist.NORMAL,
-        ensemble_size=3, learning_rate=0.01, num_epochs=12,
-        seed=jax.random.PRNGKey(1), batch_size=32, backend='pallas',
-    )
-    losses = np.asarray(losses)
-    assert losses.shape == (3, 12)
-    assert np.all(np.isfinite(losses))
-    assert losses[:, -1].mean() < losses[:, 0].mean()
-
-  def _count_data(self, n=96, seed=5):
-    rng = np.random.default_rng(seed)
-    t = np.arange(n, dtype=np.float32) % 50
-    s = rng.normal(size=n).astype(np.float32)
-    x = np.stack([t, s], -1)
-    y = rng.poisson(np.exp(0.5 * np.sin(t / 8) + 1.0)).astype(np.float32)
-    y[::9] = 0.0  # exercise the ZINB zero branch
-    return x, y
-
-  def test_pallas_nb_likelihood(self):
-    config = _small_config(width=16, depth=1)
-    x, y = self._count_data()
-    params, losses = map_lib.ensemble_map(
-        _aug(config, x), y, config, likelihoods.LikelihoodDist.NB,
-        ensemble_size=2, learning_rate=0.01, num_epochs=15,
-        seed=jax.random.PRNGKey(0), backend='pallas',
-    )
-    losses = np.asarray(losses)
-    assert np.all(np.isfinite(losses))
-    assert losses[:, -1].mean() < losses[:, 0].mean()
-
-  def test_data_sharded_full_batch_matches_xla(self):
-    """Fused kernels on an ('ens' x 'data') mesh: per-shard kernel + psum."""
+  def test_data_sharded_full_batch_matches_unsharded(self):
+    """Rows sharded over a 4-wide 'data' axis; XLA all-reduces the loss
+    and gradients over 'data'."""
     config = _small_config(width=16, depth=2)
     x, y = _small_data(n=96)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    common = dict(
-        aug_features=_aug(config, x), target=y, config=config,
-        distribution=likelihoods.LikelihoodDist.NORMAL, ensemble_size=2,
-        learning_rate=0.01, num_epochs=8, seed=jax.random.PRNGKey(0),
-        mesh=mesh,
+    common = self._common(config, x, y)
+    _assert_fits_agree(
+        map_lib.ensemble_map(
+            mesh=mesh_lib.default_mesh(data_devices=4), **common
+        ),
+        map_lib.ensemble_map(mesh=mesh_lib.default_mesh(), **common),
     )
-    p_x, l_x = map_lib.ensemble_map(backend='xla', **common)
-    p_p, l_p = map_lib.ensemble_map(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=1e-3)
-    for a, b in zip(p_x, p_p):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
 
   def test_data_sharded_uneven_rows_full_batch(self):
-    """N % data_shards != 0: padded shards + in-kernel valid-row masking.
-
-    The sharded-pallas and sharded-xla results must both match an
-    unsharded-xla fit of the same seed (the unpadded ground truth).
-    """
+    """N % data_shards != 0: the balanced padded layout's pad rows get zero
+    weight, so the fit equals the unpadded unsharded one."""
     config = _small_config(width=16, depth=1)
     x, y = _small_data(n=97)  # 97 % 2 == 1
-    common = dict(
-        aug_features=_aug(config, x), target=y, config=config,
-        distribution=likelihoods.LikelihoodDist.NORMAL, ensemble_size=2,
-        learning_rate=0.01, num_epochs=8, seed=jax.random.PRNGKey(0),
+    common = self._common(config, x, y)
+    _assert_fits_agree(
+        map_lib.ensemble_map(
+            mesh=mesh_lib.default_mesh(data_devices=2), **common
+        ),
+        map_lib.ensemble_map(mesh=mesh_lib.default_mesh(), **common),
     )
-    mesh2 = mesh_lib.default_mesh(data_devices=2)
-    p_ref, l_ref = map_lib.ensemble_map(
-        backend='xla', mesh=mesh_lib.default_mesh(), **common
-    )
-    l_ref = np.asarray(l_ref)
-    for backend in ('xla', 'pallas'):
-      p_s, l_s = map_lib.ensemble_map(backend=backend, mesh=mesh2, **common)
-      l_s = np.asarray(l_s)
-      np.testing.assert_allclose(
-          l_ref[:, 0], l_s[:, 0], rtol=1e-5, err_msg=backend
-      )
-      np.testing.assert_allclose(l_ref, l_s, rtol=1e-3, err_msg=backend)
-      for a, b in zip(p_ref, p_s):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3,
-            err_msg=backend,
-        )
-
-  def test_data_sharded_minibatch_matches_xla(self):
-    """Minibatch SGD over a sharded data axis (the BASELINE config-5 /
-    VI-registry regime): both backends run the per-shard local-permutation
-    scheme of parallel/minibatch.py under shard_map, so they agree
-    batch-for-batch. N=97 also exercises the balanced padded layout."""
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=97)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    common = dict(
-        aug_features=_aug(config, x), target=y, config=config,
-        distribution=likelihoods.LikelihoodDist.NORMAL, ensemble_size=4,
-        learning_rate=0.01, num_epochs=6, seed=jax.random.PRNGKey(0),
-        batch_size=32, mesh=mesh,
-    )
-    p_x, l_x = map_lib.ensemble_map(backend='xla', **common)
-    p_p, l_p = map_lib.ensemble_map(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    assert l_x.shape == (4, 6)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=1e-3, atol=1e-4)
-    for a, b in zip(p_x, p_p):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
-
-  def test_data_sharded_minibatch_non_divisible(self):
-    """batch_size % data_shards != 0: pallas refuses with an actionable
-    message; xla falls back to the GSPMD global-permutation path."""
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=96)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    common = dict(
-        aug_features=_aug(config, x), target=y, config=config,
-        distribution=likelihoods.LikelihoodDist.NORMAL, ensemble_size=2,
-        learning_rate=0.01, num_epochs=2, seed=jax.random.PRNGKey(0),
-        batch_size=33, mesh=mesh,
-    )
-    with pytest.raises(ValueError, match='data_shards == 0'):
-      map_lib.ensemble_map(backend='pallas', **common)
-    _, losses = map_lib.ensemble_map(backend='xla', **common)
-    assert np.all(np.isfinite(np.asarray(losses)))
 
   @pytest.mark.parametrize('dist', [
       likelihoods.LikelihoodDist.NB, likelihoods.LikelihoodDist.ZINB,
   ])
-  def test_count_matches_xla_backend(self, dist):
+  def test_count_data_sharded_full_batch_matches_unsharded(self, dist):
     config = _small_config(width=16, depth=2)
-    x, y = self._count_data()
-    common = dict(
-        aug_features=_aug(config, x), target=y, config=config,
-        distribution=dist, ensemble_size=2,
-        learning_rate=0.01, num_epochs=8, seed=jax.random.PRNGKey(0),
+    x, y = _count_data()
+    common = self._common(config, x, y)
+    common['distribution'] = dist
+    _assert_fits_agree(
+        map_lib.ensemble_map(
+            mesh=mesh_lib.default_mesh(data_devices=2), **common
+        ),
+        map_lib.ensemble_map(mesh=mesh_lib.default_mesh(), **common),
+        rtol=3e-3, atol=1e-4,
     )
-    p_x, l_x = map_lib.ensemble_map(backend='xla', **common)
-    p_p, l_p = map_lib.ensemble_map(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    # Same math/RNG; differences are matmul tiling plus the in-kernel
-    # Stirling gammaln/digamma vs jax.scipy's (<= ~3e-4 relative).
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-3)
-    np.testing.assert_allclose(l_x, l_p, rtol=3e-3)
-    for a, b in zip(p_x, p_p):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=5e-3
+
+  def test_data_sharded_minibatch_non_divisible_matches_unsharded(self):
+    """batch_size % data_shards != 0 runs the GSPMD program, whose global
+    permutation is the unsharded program's: same batches, same fit."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=96)
+    common = self._common(config, x, y, batch_size=33)
+    _assert_fits_agree(
+        map_lib.ensemble_map(
+            mesh=mesh_lib.default_mesh(data_devices=2), **common
+        ),
+        map_lib.ensemble_map(mesh=mesh_lib.default_mesh(), **common),
+    )
+
+  def test_data_sharded_minibatch_ensemble_sharding_invariant(self):
+    """The divisible sharded minibatch (shard_map, per-shard permutation)
+    gives each member the same batches however 'ens' is sharded: a 4 x 2
+    mesh equals a 1 x 2 mesh. N=97 also exercises the balanced layout."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=97)
+    common = self._common(config, x, y, batch_size=32)
+    common.update(ensemble_size=4, num_epochs=6)
+    got = map_lib.ensemble_map(
+        mesh=mesh_lib.default_mesh(data_devices=2), **common
+    )
+    want = map_lib.ensemble_map(
+        mesh=mesh_lib.default_mesh(devices=jax.devices()[:2],
+                                   data_devices=2),
+        **common,
+    )
+    assert np.asarray(got[1]).shape == (4, 6)
+    _assert_fits_agree(got, want, atol=1e-4)
+    assert np.asarray(got[1])[:, -1].mean() < np.asarray(got[1])[:, 0].mean()
+
+  def test_sharded_losses_and_grads_match_unsharded(self):
+    """The shard_map programs' per-step loss/grad: row shards psum'd over
+    'data' equal plain autodiff over the whole batch."""
+    config = _small_config(width=16, depth=2)
+    x, y = _count_data(n=64)
+    aug_t = jnp.asarray(_aug(config, x)).T
+    params = jax.vmap(lambda k: field_lib.init_params(config, k))(
+        jax.random.split(jax.random.PRNGKey(0), 2)
+    )
+    for dist in likelihoods.LikelihoodDist:
+      want = map_lib._make_losses_and_grads(
+          config, dist, 1.5, 1.0, 'f32', data_shards=1
+      )(params, aug_t, jnp.asarray(y))
+      mesh = mesh_lib.default_mesh(devices=jax.devices()[:4],
+                                   data_devices=2)
+      fn = map_lib._make_losses_and_grads(
+          config, dist, 1.5, 1.0, 'f32', data_shards=2
       )
+      p_ens = jax.sharding.PartitionSpec(mesh_lib.ENSEMBLE_AXIS)
+      got = jax.jit(jax.shard_map(
+          fn, mesh=mesh,
+          in_specs=(p_ens, jax.sharding.PartitionSpec(None, 'data'),
+                    jax.sharding.PartitionSpec('data')),
+          out_specs=(p_ens, p_ens), check_vma=False,
+      ))(params, aug_t, jnp.asarray(y))
+      np.testing.assert_allclose(got[0], want[0], rtol=1e-5, err_msg=str(dist))
+      for a, b in zip(got[1], want[1]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5,
+                                   err_msg=str(dist))
+
+  def test_shardmap_program_matches_gspmd_program_unsharded_data(self):
+    """On an unsharded data axis the shard_map program draws the
+    reference per-member permutation, so it equals the GSPMD program."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=96)
+    mesh = mesh_lib.default_mesh()
+    aug_t, target = minibatch_lib.make_layout_fn(96, 1, mesh)(
+        _aug(config, x), jnp.asarray(y)
+    )
+    dist = likelihoods.LikelihoodDist.NORMAL
+    results = []
+    for factory in (map_lib._make_shardmap_train_fn, map_lib._make_train_fn):
+      params, opt, keys, _ = map_lib._make_init_fn(config, 0.01, 8, mesh)(
+          jax.random.PRNGKey(0), np.float32(0.0)
+      )
+      fn = factory(config, dist, 4, 32, 96, 0.01, 1.0, mesh)
+      p, _, _, losses = fn(params, opt, keys, aug_t, target)
+      results.append((p, losses))
+    _assert_fits_agree(results[0], results[1])
 
 
-class TestPallasVIBackend:
+class TestShardedVIMatchesResident:
+  """Sharded ensemble VI against the unsharded resident program."""
 
   def _common(self, config, x, y, batch_size=None):
     return dict(
@@ -522,122 +512,122 @@ class TestPallasVIBackend:
         kl_weight=0.2, batch_size=batch_size,
     )
 
-  def test_vi_matches_xla_backend(self):
+  def _fit(self, mesh, common):
+    s, l, _ = vi_lib.fit_vi(mesh=mesh, **common)
+    return s, l
+
+  def test_vi_data_sharded_full_batch_matches_unsharded(self):
     config = _small_config(width=16, depth=1)
     x, y = _small_data(n=96)
     common = self._common(config, x, y)
-    s_x, l_x, d_x = vi_lib.fit_vi(backend='xla', **common)
-    s_p, l_p, d_p = vi_lib.fit_vi(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    # Identical RNG (step keys, MC draws, minibatch permutation); only
-    # matmul tiling differs.
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=1e-3, atol=1e-4)
-    for a, b in zip(jax.tree_util.tree_leaves(s_x),
-                    jax.tree_util.tree_leaves(s_p)):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
-
-  def test_vi_minibatch_pallas(self):
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=96)
-    common = self._common(config, x, y, batch_size=32)
-    s_x, l_x, _ = vi_lib.fit_vi(backend='xla', **common)
-    s_p, l_p, _ = vi_lib.fit_vi(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    assert l_p.shape == (2, 6)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=2e-3, atol=1e-3)
-
-  def test_vi_data_sharded_minibatch_matches_xla(self):
-    """Minibatch VI over a sharded data axis — the regime of EVERY VI
-    registry config. Both backends resample per step via the per-shard
-    scheme of parallel/minibatch.py; N=97 exercises the balanced layout.
-    """
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=97)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    common = self._common(config, x, y, batch_size=32)
-    common['mesh'] = mesh
-    common['ensemble_size'] = 4
-    s_x, l_x, _ = vi_lib.fit_vi(backend='xla', **common)
-    s_p, l_p, _ = vi_lib.fit_vi(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    assert l_x.shape == (4, 6)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=2e-3, atol=1e-3)
-    for a, b in zip(jax.tree_util.tree_leaves(s_x),
-                    jax.tree_util.tree_leaves(s_p)):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
-
-  def test_vi_data_sharded_minibatch_non_divisible(self):
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=96)
-    common = self._common(config, x, y, batch_size=33)
-    common['mesh'] = mesh_lib.default_mesh(data_devices=2)
-    with pytest.raises(ValueError, match='data_shards == 0'):
-      vi_lib.fit_vi(backend='pallas', **common)
-    _, losses, _ = vi_lib.fit_vi(backend='xla', **common)
-    assert np.all(np.isfinite(np.asarray(losses)))
-
-  def test_vi_data_sharded_full_batch_matches_xla(self):
-    """VI fused kernels on an ('ens' x 'data') mesh: NLL/grad psum."""
-    config = _small_config(width=16, depth=1)
-    x, y = _small_data(n=96)
-    mesh = mesh_lib.default_mesh(data_devices=2)
-    common = self._common(config, x, y)
-    common['mesh'] = mesh
-    s_x, l_x, _ = vi_lib.fit_vi(backend='xla', **common)
-    s_p, l_p, _ = vi_lib.fit_vi(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-5)
-    np.testing.assert_allclose(l_x, l_p, rtol=1e-3, atol=1e-4)
-    for a, b in zip(jax.tree_util.tree_leaves(s_x),
-                    jax.tree_util.tree_leaves(s_p)):
-      np.testing.assert_allclose(
-          np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3
-      )
+    _assert_fits_agree(
+        self._fit(mesh_lib.default_mesh(data_devices=2), common),
+        self._fit(mesh_lib.default_mesh(), common), atol=1e-4,
+    )
 
   def test_vi_data_sharded_uneven_rows_full_batch(self):
     """VI on an uneven data axis: padded shards, exact row exclusion."""
     config = _small_config(width=16, depth=1)
     x, y = _small_data(n=97)
     common = self._common(config, x, y)
-    s_ref, l_ref, _ = vi_lib.fit_vi(
-        backend='xla', mesh=mesh_lib.default_mesh(), **common
+    _assert_fits_agree(
+        self._fit(mesh_lib.default_mesh(data_devices=2), common),
+        self._fit(mesh_lib.default_mesh(), common), atol=1e-4,
     )
-    l_ref = np.asarray(l_ref)
-    mesh2 = mesh_lib.default_mesh(data_devices=2)
-    for backend in ('xla', 'pallas'):
-      s_s, l_s, _ = vi_lib.fit_vi(backend=backend, mesh=mesh2, **common)
-      l_s = np.asarray(l_s)
-      np.testing.assert_allclose(
-          l_ref[:, 0], l_s[:, 0], rtol=1e-5, err_msg=backend
-      )
-      np.testing.assert_allclose(
-          l_ref, l_s, rtol=1e-3, atol=1e-4, err_msg=backend
-      )
-      for a, b in zip(jax.tree_util.tree_leaves(s_ref),
-                      jax.tree_util.tree_leaves(s_s)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=2e-2, atol=2e-3,
-            err_msg=backend,
-        )
 
-  def test_vi_count_matches_xla_backend(self):
+  def test_vi_count_data_sharded_full_batch_matches_unsharded(self):
     config = _small_config(width=16, depth=1)
-    rng = np.random.default_rng(7)
-    t = np.arange(96, dtype=np.float32) % 50
-    x = np.stack([t, rng.normal(size=96).astype(np.float32)], -1)
-    y = rng.poisson(np.exp(0.4 * np.sin(t / 8) + 1.0)).astype(np.float32)
-    y[::9] = 0.0
+    x, y = _count_data(seed=7)
     common = self._common(config, x, y)
     common['observation_model'] = 'ZINB'
-    s_x, l_x, _ = vi_lib.fit_vi(backend='xla', **common)
-    s_p, l_p, _ = vi_lib.fit_vi(backend='pallas', **common)
-    l_x, l_p = np.asarray(l_x), np.asarray(l_p)
-    np.testing.assert_allclose(l_x[:, 0], l_p[:, 0], rtol=1e-3)
-    np.testing.assert_allclose(l_x, l_p, rtol=5e-3, atol=1e-3)
+    _assert_fits_agree(
+        self._fit(mesh_lib.default_mesh(data_devices=2), common),
+        self._fit(mesh_lib.default_mesh(), common),
+        first_rtol=1e-4, rtol=5e-3, atol=1e-3,
+    )
+
+  def test_vi_data_sharded_minibatch_non_divisible_matches_unsharded(self):
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=96)
+    common = self._common(config, x, y, batch_size=33)
+    _assert_fits_agree(
+        self._fit(mesh_lib.default_mesh(data_devices=2), common),
+        self._fit(mesh_lib.default_mesh(), common), atol=1e-4,
+    )
+
+  def test_vi_data_sharded_minibatch_ensemble_sharding_invariant(self):
+    """Minibatch VI over a sharded data axis — the regime of EVERY VI
+    registry config (shard_map, per-shard resampling each step); N=97
+    exercises the balanced layout."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=97)
+    common = self._common(config, x, y, batch_size=32)
+    common['ensemble_size'] = 4
+    got = self._fit(mesh_lib.default_mesh(data_devices=2), common)
+    want = self._fit(
+        mesh_lib.default_mesh(devices=jax.devices()[:2], data_devices=2),
+        common,
+    )
+    assert np.asarray(got[1]).shape == (4, 6)
+    _assert_fits_agree(got, want, rtol=2e-3, atol=1e-3)
+
+  def test_vi_sharded_elbo_matches_unsharded(self):
+    """The shard_map VI programs' per-step ELBO and gradient: shard-local
+    terms psum'd over 'data' equal the whole-batch ELBO."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=64)
+    aug_t = jnp.asarray(_aug(config, x)).T
+    surrogate = jax.vmap(lambda k: vi_lib.init_surrogate(config, k))(
+        jax.random.split(jax.random.PRNGKey(0), 2)
+    )
+    keys = jax.random.split(jax.random.PRNGKey(1), 2)
+    dist = likelihoods.LikelihoodDist.NORMAL
+
+    def total(fn, *args):
+      def f(s):
+        losses = fn(s, *args)
+        return losses.sum(), losses
+      return jax.value_and_grad(f, has_aux=True)
+
+    one = vi_lib._make_elbo_losses(config, dist, 2.0, 3, 'f32', 1)
+    (_, want_l), want_g = total(one, keys, aug_t, jnp.asarray(y))(surrogate)
+
+    two = vi_lib._make_elbo_losses(config, dist, 2.0, 3, 'f32', 2)
+
+    def shard_fn(s, k, a, yy):
+      (_, losses), grads = total(two, k, a, yy)(s)
+      psum = lambda v: jax.lax.psum(v, mesh_lib.DATA_AXIS)  # noqa: E731
+      return psum(losses), jax.tree_util.tree_map(psum, grads)
+
+    mesh = mesh_lib.default_mesh(devices=jax.devices()[:4], data_devices=2)
+    p_ens = jax.sharding.PartitionSpec(mesh_lib.ENSEMBLE_AXIS)
+    got_l, got_g = jax.jit(jax.shard_map(
+        shard_fn, mesh=mesh,
+        in_specs=(p_ens, p_ens, jax.sharding.PartitionSpec(None, 'data'),
+                  jax.sharding.PartitionSpec('data')),
+        out_specs=(p_ens, p_ens), check_vma=False,
+    ))(surrogate, keys, aug_t, jnp.asarray(y))
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(got_g),
+                    jax.tree_util.tree_leaves(want_g)):
+      np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+  def test_vi_shardmap_program_matches_gspmd_program_unsharded_data(self):
+    """On an unsharded data axis the shard_map VI program reproduces the
+    GSPMD program's per-member RNG (step keys, MC draws, minibatch)."""
+    config = _small_config(width=16, depth=1)
+    x, y = _small_data(n=96)
+    mesh = mesh_lib.default_mesh()
+    aug_t, target = minibatch_lib.make_layout_fn(96, 1, mesh)(
+        _aug(config, x), jnp.asarray(y)
+    )
+    dist = likelihoods.LikelihoodDist.NORMAL
+    results = []
+    for factory in (vi_lib._make_shardmap_vi_fn, vi_lib._make_vi_fn):
+      surr, opt, keys, _ = vi_lib._make_vi_init_fn(config, 0.02, 8, mesh)(
+          jax.random.PRNGKey(0)
+      )
+      fn = factory(config, dist, 5, 32, 96, 0.02, 3, 0.2, mesh)
+      s, _, _, losses = fn(surr, opt, keys, aug_t, target)
+      results.append((s, losses))
+    _assert_fits_agree(results[0], results[1], atol=1e-4)

@@ -43,30 +43,41 @@ class TestSpecial:
     grads = np.asarray(jax.vmap(jax.grad(special.log_softplus))(x))
     assert np.all(np.isfinite(grads))
 
-  def test_gammaln_stirling_vs_scipy(self):
-    # Kernel-safe (log/exp/mul-only) form used inside the fused train
-    # kernel; compare against scipy over the argument ranges NB sees
-    # (counts + 1/softplus(shape)) — including the huge total_counts a
-    # diverging shape parameter can produce, which must stay finite.
-    # Up to ~4e36, beyond which the true gammaln itself exceeds f32 max.
-    x = np.concatenate(
-        [np.linspace(1e-3, 20, 997), np.logspace(1.5, 36, 300)]
-    ).astype(np.float32)
-    got = np.asarray(special.gammaln_stirling(x))
-    assert np.all(np.isfinite(got))
-    want = scipy.special.gammaln(x.astype(np.float64))
-    err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
-    assert err.max() < 1e-3, err.max()
+  def test_normal_log_prob_cdf_and_quantile_vs_scipy(self):
+    x = np.linspace(-6, 6, 49)
+    np.testing.assert_allclose(
+        np.asarray(special.normal_log_prob(x, 0.7, 1.9)),
+        scipy.stats.norm.logpdf(x, 0.7, 1.9), rtol=1e-6,
+    )
+    np.testing.assert_allclose(
+        np.asarray(special.normal_cdf(x, 0.7, 1.9)),
+        scipy.stats.norm.cdf(x, 0.7, 1.9), rtol=1e-5, atol=1e-7,
+    )
+    q = np.array([0.025, 0.2, 0.5, 0.9, 0.975])
+    np.testing.assert_allclose(
+        np.asarray(special.normal_quantile(q, 0.7, 1.9)),
+        scipy.stats.norm.ppf(q, 0.7, 1.9), rtol=1e-5,
+    )
 
-  def test_digamma_stirling_vs_scipy(self):
-    x = np.concatenate(
-        [np.linspace(1e-3, 20, 997), np.logspace(1.5, 30, 250)]
-    ).astype(np.float32)
-    got = np.asarray(special.digamma_stirling(x))
-    assert np.all(np.isfinite(got))
-    want = scipy.special.digamma(x.astype(np.float64))
-    err = np.abs(got - want) / np.maximum(np.abs(want), 1.0)
-    assert err.max() < 1e-3, err.max()
+  def test_nb_log_prob_gradient_vs_digamma(self):
+    # The NB trainers differentiate nb_log_prob through lax.lgamma; its
+    # total_count gradient must be the closed form
+    # digamma(r + x) - digamma(r) + log_sigmoid(-logits), including the
+    # huge total_counts a diverging shape parameter produces.
+    x = np.arange(0, 40, 3).astype(np.float32)
+    logits = np.float32(-0.4)
+    for r in (0.3, 2.5, 40.0, 1e5):
+      got = np.asarray(jax.vmap(
+          jax.grad(special.nb_log_prob, argnums=1), in_axes=(0, None, None)
+      )(x, np.float32(r), logits))
+      want = (
+          scipy.special.digamma(r + x.astype(np.float64))
+          - scipy.special.digamma(r)
+          - np.logaddexp(0.0, float(logits))
+      )
+      assert np.all(np.isfinite(got))
+      np.testing.assert_allclose(got, want, rtol=2e-3, atol=1e-4,
+                                 err_msg=str(r))
 
   def test_nb_log_prob_vs_scipy(self):
     # My pmf: C(x + r - 1, x) * sigmoid(-l)^r * sigmoid(l)^x

@@ -54,7 +54,7 @@ def _assert_bitwise(got, want):
 def test_streamed_matches_in_memory_bitwise(observation_model):
   config, x, params = _setup(n=100)
   kwargs = dict(
-      quantiles=(0.5, 0.975), ensemble_dims=2, chunk_size=16, backend='xla'
+      quantiles=(0.5, 0.975), ensemble_dims=2, chunk_size=16
   )
   want = predict_lib.predict_bnf(
       x, observation_model, params, config, **kwargs
@@ -70,7 +70,7 @@ def test_streamed_matches_in_memory_bitwise(observation_model):
 def test_stream_chunk_rows_is_bit_invariant():
   config, x, params = _setup(n=100)
   kwargs = dict(
-      quantiles=(0.025, 0.5), ensemble_dims=2, chunk_size=16, backend='xla'
+      quantiles=(0.025, 0.5), ensemble_dims=2, chunk_size=16
   )
   a = predict_lib.predict_bnf(
       x, 'NORMAL', params, config, stream_chunk_rows=16, **kwargs
@@ -90,7 +90,7 @@ def test_streamed_vi_shape_contract():
   # VI's ensemble_dims=3 (groups, samples, members) path.
   config, x, params = _setup(n=40, ensemble_shape=(1, 2, 2))
   kwargs = dict(
-      quantiles=(0.5,), ensemble_dims=3, chunk_size=16, backend='xla'
+      quantiles=(0.5,), ensemble_dims=3, chunk_size=16
   )
   want = predict_lib.predict_bnf(x, 'NORMAL', params, config, **kwargs)
   got = predict_lib.predict_bnf(
@@ -103,7 +103,7 @@ def test_streamed_vi_shape_contract():
 def test_streamed_approximate_quantiles():
   config, x, params = _setup(n=50)
   kwargs = dict(
-      quantiles=(0.5, 0.9), ensemble_dims=2, chunk_size=16, backend='xla',
+      quantiles=(0.5, 0.9), ensemble_dims=2, chunk_size=16,
       approximate_quantiles=True,
   )
   want = predict_lib.predict_bnf(x, 'NORMAL', params, config, **kwargs)
@@ -130,7 +130,6 @@ def test_streamed_over_mesh_matches_in_memory():
   mesh = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
   kwargs = dict(
       quantiles=(0.5, 0.975), ensemble_dims=2, chunk_size=32, mesh=mesh,
-      backend='xla',
   )
   want = predict_lib.predict_bnf(x, 'NORMAL', params, config, **kwargs)
   got = predict_lib.predict_bnf(
@@ -154,7 +153,6 @@ def test_streamed_forecast_params_bitwise(observation_model):
   config, x, params = _setup(n=70)
   want = predict_lib.forecast_params_bnf(
       x, observation_model, params, config, ensemble_dims=2, chunk_size=16,
-      backend='xla',
   )
   # Default budget (all chunks device-cached, one batched fetch per
   # leaf), a one-chunk budget (partial spill), and budget 0 (pure
@@ -162,7 +160,7 @@ def test_streamed_forecast_params_bitwise(observation_model):
   for cache_bytes in (1 << 30, 6 * 32 * 4 * 2, 0):
     got = predict_lib.forecast_params_bnf(
         x, observation_model, params, config, ensemble_dims=2,
-        chunk_size=16, backend='xla', stream_chunk_rows=32,
+        chunk_size=16, stream_chunk_rows=32,
         stream_cache_bytes=cache_bytes,
     )
     assert len(got) == len(want)
@@ -187,17 +185,17 @@ def test_estimator_streamed_predict_and_likelihood_model():
   )
   m.fit(
       df, seed=jax.random.PRNGKey(0), ensemble_size=4, num_epochs=8,
-      batch_size=20, backend='xla', stream_chunk_steps=4,
+      batch_size=20, stream_chunk_steps=4,
   )
-  want = m.predict(df, quantiles=(0.5, 0.975), backend='xla')
+  want = m.predict(df, quantiles=(0.5, 0.975))
   got = m.predict(
-      df, quantiles=(0.5, 0.975), backend='xla', stream_chunk_rows=32
+      df, quantiles=(0.5, 0.975), stream_chunk_rows=32
   )
   _assert_bitwise(got, want)
 
-  lm_mem = m.likelihood_model(df, backend='xla')
+  lm_mem = m.likelihood_model(df)
   lm_str = m.likelihood_model(
-      df, backend='xla', stream_chunk_rows=32, stream_cache_bytes=0
+      df, stream_chunk_rows=32, stream_cache_bytes=0
   )
   np.testing.assert_array_equal(
       np.asarray(lm_str.mean()), np.asarray(lm_mem.mean())
@@ -223,7 +221,7 @@ def test_cache_budget_bit_invariant(observation_model):
   """
   config, x, params = _setup(n=100)
   kwargs = dict(
-      quantiles=(0.5, 0.975), ensemble_dims=2, chunk_size=16, backend='xla'
+      quantiles=(0.5, 0.975), ensemble_dims=2, chunk_size=16
   )
   want = predict_lib.predict_bnf(
       x, observation_model, params, config, **kwargs
@@ -263,11 +261,10 @@ def test_estimator_stream_cache_bytes_kwarg():
       feature_cols=['time', 'lat'], target_col='y',
       observation_model='NORMAL', timetype='float', standardize=['lat'],
   )
-  m.fit(df, seed=jax.random.PRNGKey(0), ensemble_size=4, num_epochs=4,
-        backend='xla')
-  want = m.predict(df, quantiles=(0.5,), backend='xla')
+  m.fit(df, seed=jax.random.PRNGKey(0), ensemble_size=4, num_epochs=4)
+  want = m.predict(df, quantiles=(0.5,))
   got = m.predict(
-      df, quantiles=(0.5,), backend='xla', stream_chunk_rows=16,
+      df, quantiles=(0.5,), stream_chunk_rows=16,
       stream_cache_bytes=0,
   )
   _assert_bitwise(got, want)
@@ -276,8 +273,7 @@ def test_estimator_stream_cache_bytes_kwarg():
 def test_single_chunk_degenerate():
   # stream_chunk_rows >= N: one chunk, still bit-equal.
   config, x, params = _setup(n=30)
-  kwargs = dict(quantiles=(0.5,), ensemble_dims=2, chunk_size=16,
-                backend='xla')
+  kwargs = dict(quantiles=(0.5,), ensemble_dims=2, chunk_size=16)
   want = predict_lib.predict_bnf(x, 'NB', params, config, **kwargs)
   got = predict_lib.predict_bnf(
       x, 'NB', params, config, stream_chunk_rows=10_000, **kwargs

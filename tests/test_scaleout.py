@@ -1,8 +1,9 @@
 """Scale-out rehearsal: the BASELINE 'config 5' shape on the virtual mesh.
 
-Exercises, end to end on the 8-device CPU mesh, the combination a v5e-32
-precipitation-style run would use: multihost-layout ('ens' x 'data') mesh,
-ensemble sharded over the (DCN-like) leading axis, rows sharded within the
+Exercises, end to end on the 8-device CPU mesh, the combination a
+multi-host precipitation-style run would use: multihost-layout ('ens' x
+'data') mesh, ensemble sharded over the (cross-host) leading axis, rows
+sharded within the
 data group, minibatch SGD with per-member reshuffling, chunked gradient
 accumulation, and periodic checkpointing with bit-exact resume.
 """

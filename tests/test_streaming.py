@@ -6,8 +6,9 @@ invariants, each tested here:
 
 - slice-size invariance: the slice size is pure transfer granularity —
   results are BIT-identical for any `stream_chunk_steps`.
-- backend agreement: the same host batch sequence drives both shard_map
-  kernels ('xla' and 'pallas').
+- ensemble-sharding invariance: members are independent and the batch
+  sequence is shared, so sharding 'ens' over several devices gives the
+  single-device result (member remix keys off GLOBAL member ids).
 - shard-count invariance: a streamed batch splits over the 'data' axis
   and losses/grads psum — shard count only reassociates the sums.
 - deterministic replay: epoch permutations derive from (seed, epoch), so
@@ -44,7 +45,6 @@ def _setup(n=50):
 
 
 def _run(config, aug, y, **kwargs):
-  kwargs.setdefault('backend', 'xla')
   return map_lib.ensemble_map(
       aug, y, config, likelihoods.LikelihoodDist.NORMAL,
       ensemble_size=3, learning_rate=0.01, num_epochs=4,
@@ -125,14 +125,16 @@ class TestStreamingTrainer:
     for a, b in zip(p1, p2):
       np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-  def test_pallas_kernel_agrees_with_xla(self):
+  def test_ensemble_sharding_matches_single_device(self):
     config, aug, y = _setup()
-    mesh = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
-    p_x, _ = _run(config, aug, y, mesh=mesh, stream_chunk_steps=3)
-    p_p, _ = _run(
-        config, aug, y, mesh=mesh, stream_chunk_steps=3, backend='pallas'
+    mesh4 = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
+    mesh1 = mesh_lib.default_mesh(jax.devices()[:1])
+    p_s, l_s = _run(config, aug, y, mesh=mesh4, stream_chunk_steps=3)
+    p_1, l_1 = _run(config, aug, y, mesh=mesh1, stream_chunk_steps=3)
+    np.testing.assert_allclose(
+        np.asarray(l_s), np.asarray(l_1), rtol=1e-5, atol=1e-6
     )
-    for a, b in zip(p_x, p_p):
+    for a, b in zip(p_s, p_1):
       np.testing.assert_allclose(
           np.asarray(a), np.asarray(b), rtol=2e-4, atol=2e-5
       )
@@ -156,7 +158,7 @@ class TestStreamingTrainer:
     map_lib.ensemble_map(
         aug, y, config, likelihoods.LikelihoodDist.NORMAL,
         ensemble_size=3, learning_rate=0.01, num_epochs=2,
-        seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+        seed=jax.random.PRNGKey(0), batch_size=10,
         stream_chunk_steps=3, checkpoint_dir=ckdir, checkpoint_every=2,
     )
     p_res, l_res = _run(
@@ -176,14 +178,14 @@ class TestStreamingTrainer:
     map_lib.ensemble_map(
         aug, y, config, likelihoods.LikelihoodDist.NORMAL,
         ensemble_size=3, learning_rate=0.01, num_epochs=2,
-        seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+        seed=jax.random.PRNGKey(0), batch_size=10,
         stream_chunk_steps=3, checkpoint_dir=ckdir, checkpoint_every=2,
     )
     with pytest.raises(ValueError, match='different configuration'):
       map_lib.ensemble_map(
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
-          seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+          seed=jax.random.PRNGKey(0), batch_size=10,
           checkpoint_dir=ckdir, checkpoint_every=2,
       )
 
@@ -193,7 +195,7 @@ class TestStreamingTrainer:
       map_lib.ensemble_map(
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
-          seed=jax.random.PRNGKey(0), batch_size=None, backend='xla',
+          seed=jax.random.PRNGKey(0), batch_size=None,
           stream_chunk_steps=3,
       )
 
@@ -205,7 +207,7 @@ class TestStreamingTrainer:
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
           seed=jax.random.PRNGKey(0), batch_size=7, mesh=mesh,
-          backend='xla', stream_chunk_steps=3,
+          stream_chunk_steps=3,
       )
 
 
@@ -214,7 +216,6 @@ class TestVIStreaming:
   def _run_vi(self, config, aug, y, **kwargs):
     from bayesnf_tpu.inference import vi as vi_lib
 
-    kwargs.setdefault('backend', 'xla')
     kwargs.setdefault('num_epochs', 6)
     kwargs.setdefault('batch_size', 10)
     return vi_lib.fit_vi(
@@ -232,13 +233,12 @@ class TestVIStreaming:
     for a, b in zip(s1[0] + s1[1], s2[0] + s2[1]):
       np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-  def test_pallas_kernel_agrees_with_xla(self):
+  def test_ensemble_sharding_matches_single_device(self):
     config, aug, y = _setup(n=40)
-    mesh = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
-    s_x, _, _ = self._run_vi(config, aug, y, mesh=mesh, stream_chunk_steps=2)
-    s_p, _, _ = self._run_vi(
-        config, aug, y, mesh=mesh, stream_chunk_steps=2, backend='pallas'
-    )
+    mesh4 = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
+    mesh1 = mesh_lib.default_mesh(jax.devices()[:1])
+    s_x, _, _ = self._run_vi(config, aug, y, mesh=mesh4, stream_chunk_steps=2)
+    s_p, _, _ = self._run_vi(config, aug, y, mesh=mesh1, stream_chunk_steps=2)
     for a, b in zip(s_x[0] + s_x[1], s_p[0] + s_p[1]):
       np.testing.assert_allclose(
           np.asarray(a), np.asarray(b), rtol=3e-4, atol=3e-5
@@ -308,7 +308,7 @@ class TestVIStreaming:
     m.fit(
         df, seed=jax.random.PRNGKey(0), ensemble_size=2, num_epochs=2,
         batch_size=15, sample_size_divergence=2, sample_size_posterior=3,
-        backend='xla', stream_chunk_steps=3,
+        stream_chunk_steps=3,
     )
     # _scale_epochs_by_batch_size: steps = 2 * (60 // 15) = 8.
     assert m.losses_.shape[-1] == 8
@@ -379,16 +379,19 @@ class TestMemberRemix:
     for a, b in zip(p1, p2):
       np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-  def test_remix_pallas_agrees_with_xla(self):
+  def test_remix_ensemble_sharding_matches_single_device(self):
+    """Remix permutations key off the GLOBAL member id, so sharding
+    'ens' over four devices leaves every member's batches unchanged."""
     config, aug, y = _setup()
-    mesh = mesh_lib.default_mesh(jax.devices()[:4], data_devices=2)
+    mesh4 = mesh_lib.default_mesh(jax.devices()[:4])
+    mesh1 = mesh_lib.default_mesh(jax.devices()[:1])
     p_x, _ = _run(
-        config, aug, y, mesh=mesh, stream_chunk_steps=3,
+        config, aug, y, mesh=mesh4, stream_chunk_steps=3,
         stream_member_remix=True,
     )
     p_p, _ = _run(
-        config, aug, y, mesh=mesh, stream_chunk_steps=3,
-        stream_member_remix=True, backend='pallas',
+        config, aug, y, mesh=mesh1, stream_chunk_steps=3,
+        stream_member_remix=True,
     )
     for a, b in zip(p_x, p_p):
       np.testing.assert_allclose(
@@ -405,7 +408,7 @@ class TestMemberRemix:
     map_lib.ensemble_map(
         aug, y, config, likelihoods.LikelihoodDist.NORMAL,
         ensemble_size=3, learning_rate=0.01, num_epochs=2,
-        seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+        seed=jax.random.PRNGKey(0), batch_size=10,
         checkpoint_dir=ckdir, checkpoint_every=2, **kwargs,
     )
     p_res, l_res = _run(
@@ -425,14 +428,14 @@ class TestMemberRemix:
     map_lib.ensemble_map(
         aug, y, config, likelihoods.LikelihoodDist.NORMAL,
         ensemble_size=3, learning_rate=0.01, num_epochs=2,
-        seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+        seed=jax.random.PRNGKey(0), batch_size=10,
         stream_chunk_steps=5, checkpoint_dir=ckdir, checkpoint_every=2,
     )
     with pytest.raises(ValueError, match='different configuration'):
       map_lib.ensemble_map(
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
-          seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+          seed=jax.random.PRNGKey(0), batch_size=10,
           stream_chunk_steps=5, stream_member_remix=True,
           checkpoint_dir=ckdir, checkpoint_every=2,
       )
@@ -443,7 +446,7 @@ class TestMemberRemix:
       map_lib.ensemble_map(
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
-          seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+          seed=jax.random.PRNGKey(0), batch_size=10,
           stream_chunk_steps=3, stream_member_remix=True,
           checkpoint_dir=str(tmp_path / 'ck'), checkpoint_every=1,
       )
@@ -454,7 +457,7 @@ class TestMemberRemix:
       map_lib.ensemble_map(
           aug, y, config, likelihoods.LikelihoodDist.NORMAL,
           ensemble_size=3, learning_rate=0.01, num_epochs=4,
-          seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+          seed=jax.random.PRNGKey(0), batch_size=10,
           stream_member_remix=True,
       )
 
@@ -469,7 +472,7 @@ class TestMemberRemix:
     ckdir = str(tmp_path / 'ck')
     base = dict(
         ensemble_size=3, learning_rate=0.01,
-        seed=jax.random.PRNGKey(0), batch_size=10, backend='xla',
+        seed=jax.random.PRNGKey(0), batch_size=10,
         stream_chunk_steps=4, stream_member_remix=True,
         checkpoint_dir=ckdir, checkpoint_every=4,
     )
@@ -529,7 +532,7 @@ class TestSharedPermutationEquivalence:
       )
       m.fit(
           train, seed=jax.random.PRNGKey(0), ensemble_size=8,
-          num_epochs=150, learning_rate=0.02, batch_size=60, backend='xla',
+          num_epochs=150, learning_rate=0.02, batch_size=60,
           **stream_kwargs,
       )
       means, (q025, q975) = m.predict(test, quantiles=(0.025, 0.975))
@@ -593,7 +596,7 @@ class TestEstimatorStreaming:
     )
     m.fit(
         df, seed=jax.random.PRNGKey(0), ensemble_size=8, num_epochs=120,
-        learning_rate=0.02, batch_size=25, backend='xla',
+        learning_rate=0.02, batch_size=25,
         stream_chunk_steps=8,
     )
     assert m.losses_.shape == (8, 1, 120)
